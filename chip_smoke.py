@@ -1,0 +1,501 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port (oaprogressionmmf_torch) on one NVIDIA GPU.
+
+Run from the root of a checkout:  python3 chip_smoke.py
+
+Phases (any failure exits non-zero; nothing is caught):
+  1. the card's name and power limit (nvidia-smi);
+  2. build of every CUDA kernel of the main path from ops/csrc/, with
+     ptxas's report;
+  3. each kernel against its plain PyTorch version on the card, at the
+     main path's shapes (and the with_gap=false length 2432), in float32
+     without TF32 and in bfloat16; times of the kernel, the plain version
+     and the one PyTorch call computing the same function (library_ms, a
+     yardstick the port never calls), beside the least time the card
+     could take (bound_ms);
+  4. the flagship XR1MR2C1CnnTrf inference slice at the full width of
+     bench.py's config: random weights from bench_param_spec.json (seeded,
+     bench.py's recipe), carried across with from_jax_variables and loaded
+     with strict=True; a few requests of raw batch-4 inputs through
+     make_predictor in bfloat16 with every launch count set to 0 just
+     before and read just after; probabilities checked; the bf16 run's
+     tokens into the final FeaT, its states and its logits compared with a
+     float32 (no TF32) run of the port on the same inputs, beside how far
+     knees and slices differ in the same quantities.
+
+Prints progress lines, then a JSON line of kernel records (with the
+per-length times behind each sum), the card line,
+and as its last line {"ok": true, "device": {...}}. Without a GPU it exits
+non-zero and prints no result.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+REPO = Path(__file__).resolve().parent
+BATCH = 4
+WARMUP_REQUESTS = 2
+REQUESTS = 5
+
+# bench.py's flagship config (bf16 path, no int8)
+MODALS = ["xr_pa", "sag_3d_dess", "sag_t2_map", "clin"]
+MODEL_CFG = {
+    "name": "XR1MR2C1CnnTrf",
+    "input_size": [[700, 700], [320, 320, 128], [320, 320, 25], [16]],
+    "downscale": [[0.5, 0.5], [0.5, 0.5, 0.5], [0.5, 0.5, 1.0], [1.0]],
+    "input_channels": 1,
+    "output_channels": 2,
+    "output_type": "dict",
+    "debug": False,
+    "restore_weights": False,
+    "fe": {
+        "xr": {"arch": "resnext50_32x4d", "pretrained": False,
+               "with_gap": True, "dropout": 0.0},
+        "mr": {"arch": "resnet50", "pretrained": False,
+               "with_gap": True, "dropout": 0.0},
+        "clin": {"dim_in": 9, "dim_out": 2048, "dropout": 0.1},
+    },
+    "agg": {"num_slices": [1, 64, 25, 1], "depth": 4, "heads": 8,
+            "emb_dropout": 0.1, "mlp_dim": 2048, "mlp_dropout": 0.1},
+}
+
+# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+
+# flash-attention forward: the FeaT shapes of one flagship forward
+FLASH_BH = (BATCH, 8)
+FLASH_D = 256
+FLASH_SCALE = 2048 ** -0.5          # full-width scale, emb_dim 2048
+MAIN_PATH_N = {64: 4, 25: 4, 92: 4}  # tokens → launches per forward
+CHECK_N = (25, 64, 92, 2432)
+# ~0.1 s of device-side sleep: longer than the host takes to queue a
+# timing loop, so the loop's launches run back to back on the card
+SLEEP_CYCLES = 200_000_000
+# |O − O_plain| ≤ min(out, out_rel · max|O_plain|) and |lse − lse_plain|
+# ≤ lse: bf16 output rounding alone is 2^-9 of |O|, so 2e-2 of max|O|
+# leaves some 5× headroom and still catches a 25% error at N = 2432
+TOL = {torch.float32: {"out": 2e-5, "out_rel": 1.0, "lse": 2e-5},
+       torch.bfloat16: {"out": 3e-2, "out_rel": 2e-2, "lse": 1e-4}}
+# bf16 serving against the float32 run of the same weights and inputs:
+# |Δlogit| ≤ 5e-2 · max(1, max|logit|), |Δprob| ≤ 2e-2; per token segment
+# of the final FeaT's input and output, the part the inputs drive (less
+# its mean over knees) within CENTRED_RTOL of its largest value
+LOGIT_RTOL = 5e-2
+PROB_ATOL = 2e-2
+CENTRED_RTOL = 0.25
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def card_line() -> str:
+    proc = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60)
+    return proc.stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, iters: int) -> float:
+    """Device ms of one call: CUDA events around ``iters`` calls queued
+    behind a device-side sleep, so the card runs them back to back and the
+    host's launch cost does not show."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def flash_bound_ms(n: int, dtype) -> tuple[float, str]:
+    """Least time for one call: q, k, v read once, O and lse written once;
+    two N×N×D products at the type's peak."""
+    b, h = FLASH_BH
+    elt = torch.tensor([], dtype=dtype).element_size()
+    nbytes = 4 * b * h * n * FLASH_D * elt + b * h * n * 4
+    flops = 4 * b * h * n * n * FLASH_D
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
+                                 "operations")
+
+
+def phase_build():
+    from oaprogressionmmf_torch.ops import _build
+    sources = sorted(p.stem for p in _build.CSRC_DIR.glob("*.cu"))
+    t0 = time.perf_counter()
+    results = [_build.build(name) for name in sources]
+    log(f"[build] {len(sources)} source(s) {sources} built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    for name, (path, report) in zip(sources, results):
+        log(f"[build] {name} -> {path.relative_to(REPO)}")
+        for line in report.splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                log(f"[build]   {line.strip()}")
+
+
+def check_flash(q, k, v, scale) -> float:
+    """Kernel against its plain version on the same card and inputs;
+    returns max|dO| and exits if O or lse is outside its tolerance."""
+    from oaprogressionmmf_torch.ops.flash_attention import (
+        flash_attention, flash_attention_plain)
+    out, lse = flash_attention(q, k, v, scale)
+    want, want_lse = flash_attention_plain(q, k, v, scale)
+    torch.cuda.synchronize()
+    err = (out.float() - want.float()).abs().max().item()
+    err_lse = (lse - want_lse).abs().max().item()
+    tol = TOL[q.dtype]
+    peak = want.float().abs().max().item()
+    tol_out = min(tol["out"], tol["out_rel"] * peak)
+    ok = err <= tol_out and err_lse <= tol["lse"]
+    log(f"[flash] {str(q.dtype)[6:]:8s} (B,H,N,D)={tuple(q.shape)} "
+        f"scale={scale:.4f} max|dO|={err:.3e} (tol {tol_out:.3e}, "
+        f"max|O| {peak:.3e}) max|dlse|={err_lse:.3e} (tol "
+        f"{tol['lse']:.0e}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("flash kernel disagrees with its plain version")
+    return err
+
+
+def phase_flash():
+    from oaprogressionmmf_torch.ops.flash_attention import (
+        flash_attention, flash_attention_plain)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    b, h = FLASH_BH
+
+    def qkv(n, d, dtype):
+        return tuple(torch.randn(b, h, n, d, device=dev,
+                                 generator=gen).to(dtype) for _ in range(3))
+
+    # the other head widths the kernel takes, for correctness only
+    for d in (32, 64, 128):
+        for dtype in (torch.float32, torch.bfloat16):
+            for n in (92, 130):
+                check_flash(*qkv(n, d, dtype), d ** -0.5)
+
+    record = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
+              "max_abs_err": 0.0, "per_n": []}
+    bound_parts = {"bytes": 0.0, "operations": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        for n in CHECK_N:
+            q, k, v = qkv(n, FLASH_D, dtype)
+            for scale in (FLASH_SCALE, FLASH_D ** -0.5):
+                err = check_flash(q, k, v, scale)
+                if dtype == torch.bfloat16 and n in MAIN_PATH_N \
+                        and scale == FLASH_SCALE:
+                    record["max_abs_err"] = max(record["max_abs_err"], err)
+            if dtype != torch.bfloat16:
+                continue
+            iters = 10 if n > 1000 else 200
+            t_k, t_p, t_l = (
+                time_ms(fn, iters) for fn in (
+                    lambda: flash_attention(q, k, v, FLASH_SCALE),
+                    lambda: flash_attention_plain(q, k, v, FLASH_SCALE),
+                    lambda: F.scaled_dot_product_attention(
+                        q, k, v, scale=FLASH_SCALE)))
+            bound, by = flash_bound_ms(n, dtype)
+            log(f"[flash] bf16 N={n:5d} (B,H,D)=({b},{h},{FLASH_D}) device: "
+                f"kernel {t_k:.4f} ms  plain {t_p:.4f} ms  sdpa {t_l:.4f} ms"
+                f"  bound {bound:.5f} ms ({by})")
+            record["per_n"].append(dict(n=n, ms=t_k, plain_ms=t_p,
+                                        library_ms=t_l, bound_ms=bound,
+                                        bound_by=by))
+            if n in MAIN_PATH_N:
+                reps = MAIN_PATH_N[n]
+                record["ms"] += reps * t_k
+                record["plain_ms"] += reps * t_p
+                record["library_ms"] += reps * t_l
+                record["bound_ms"] += reps * bound
+                bound_parts[by] += reps * bound
+    record["bound_by"] = max(bound_parts, key=bound_parts.get)
+    log(f"[flash] per flagship forward (12 launches, bf16): kernel "
+        f"{record['ms']:.4f} ms, plain {record['plain_ms']:.4f} ms, sdpa "
+        f"{record['library_ms']:.4f} ms, bound {record['bound_ms']:.5f} ms")
+    return record
+
+
+def synth_state_dict():
+    """bench.py's parameter recipe over bench_param_spec.json (params and
+    batch_stats; the int8 quant_acts are not part of the bf16 path)."""
+    from oaprogressionmmf_torch.utils.convert import from_jax_variables
+    spec = json.loads((REPO / "bench_param_spec.json").read_text())
+    rng = np.random.RandomState(1234)
+    tree: dict = {}
+    for entry in spec:
+        keys, shape = entry["path"], tuple(entry["shape"])
+        if keys[0] == "quant_acts":
+            continue
+        name = keys[-1]
+        if name in ("scale", "var"):
+            arr = np.ones(shape, np.float32)
+        elif name in ("bias", "mean"):
+            arr = np.zeros(shape, np.float32)
+        elif len(shape) >= 2:
+            fan_in = int(np.prod(shape[:-1]))
+            arr = rng.normal(0.0, 1.0 / np.sqrt(max(fan_in, 1)),
+                             shape).astype(np.float32)
+        else:
+            arr = rng.normal(0.0, 0.02, shape).astype(np.float32)
+        node = tree
+        for k in keys[:-1]:
+            node = node.setdefault(k, {})
+        node[name] = arr.astype(np.dtype(entry["dtype"]))
+    return from_jax_variables(MODEL_CFG["name"], tree)
+
+
+def raw_inputs():
+    """Raw inputs at bench.py's sizes and types, batch 4: uint8 XR and
+    DESS, float T2 maps, float clinical values. bench.py's uniform noise
+    is dimmed to a tenth in some 100² blocks of each X-ray, a share that
+    grows from knee to knee, and scaled by an amplitude drawn for each MRI
+    slice, so that knees and slices differ in their tokens (per-knee
+    min-max scaling would erase one amplitude per knee)."""
+    rng = np.random.RandomState(0)
+    dark = (rng.rand(BATCH, 1, 7, 1, 7, 1)
+            < np.linspace(0.1, 0.9, BATCH)[:, None, None, None, None, None])
+    xr = (rng.randint(0, 256, (BATCH, 1, 7, 100, 7, 100)).astype(np.float32)
+          * np.where(dark, 0.1, 1.0).astype(np.float32))
+    dess = (rng.randint(0, 256, (BATCH, 1, 320, 320, 128))
+            .astype(np.float32)
+            * rng.uniform(0.1, 1.0, (BATCH, 1, 1, 1, 128)).astype(np.float32))
+    t2 = (rng.randint(0, 1000, (BATCH, 1, 320, 320, 25)).astype(np.float32)
+          * 1e-4
+          * rng.uniform(0.1, 1.0, (BATCH, 1, 1, 1, 25)).astype(np.float32))
+    return (xr.reshape(BATCH, 1, 700, 700).astype(np.uint8),
+            dess.astype(np.uint8), t2,
+            rng.rand(BATCH, 1, 9).astype(np.float32))
+
+
+def capture(predictor, xs) -> dict:
+    """One forward: logits, the token sequence into the final FeaT and its
+    output states, in float32."""
+    seen = {}
+
+    def hook(module, args, out):
+        seen["tokens"] = args[0].float()
+        seen["states"] = out[1].float()
+
+    handle = predictor.model._agg_final.register_forward_hook(hook)
+    seen["logits"] = predictor.logits(xs)
+    handle.remove()
+    return seen
+
+
+def centred_error(got: torch.Tensor, want: torch.Tensor) -> tuple:
+    """(B, ...) bf16 and float32 readings → (max|Δ| / max|want|, the
+    input-driven share max|dev| / max|want|, max|Δ − mean Δ| / max|dev|).
+
+    dev is ``want`` less its mean over the knees: what the inputs put into
+    the quantity, with weights, positions and CLS tokens taken out. The
+    last ratio says how well the bf16 run carries that part. A mix-up of
+    knees, slices or modalities, or a dropped modality, makes it about 1
+    or more."""
+    diff = got - want
+    dev = want - want.mean(dim=0, keepdim=True)
+    peak, dev_peak = want.abs().max().item(), dev.abs().max().item()
+    centred = (diff - diff.mean(dim=0, keepdim=True)).abs().max().item()
+    return diff.abs().max().item() / peak, dev_peak / peak, centred / dev_peak
+
+
+def compare_dtypes(got: dict, want: dict, segments: dict) -> None:
+    """bf16 run against the float32 run: the logits at LOGIT_RTOL and
+    PROB_ATOL, and each token segment of the final FeaT's input and output
+    at CENTRED_RTOL of its input-driven part."""
+    failed = []
+    for key in ("tokens", "states"):
+        offset = 1 if key == "states" else 0   # the CLS token comes first
+        for name, (lo, hi) in segments.items():
+            rel, share, centred = centred_error(
+                got[key][:, lo + offset:hi + offset],
+                want[key][:, lo + offset:hi + offset])
+            ok = centred <= CENTRED_RTOL
+            log(f"[slice] {key:6s} {name:5s} ({hi - lo:2d} tokens): "
+                f"max|d|/max|f32| {rel:.4e}, input-driven share "
+                f"{share:.4e}, centred error {centred:.4e} (tol "
+                f"{CENTRED_RTOL}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failed.append(f"{key}/{name}")
+    logits_16, logits_32 = got["logits"], want["logits"]
+    d_logit = (logits_16 - logits_32).abs().max().item()
+    scale = max(1.0, logits_32.abs().max().item())
+    d_prob = (torch.softmax(logits_16, -1)
+              - torch.softmax(logits_32, -1)).abs().max().item()
+    _, share, centred = centred_error(logits_16, logits_32)
+    log(f"[slice] logits: max|d|={d_logit:.4e} (tol {LOGIT_RTOL}·{scale:.3f})"
+        f", max|dprob|={d_prob:.4e} (tol {PROB_ATOL}); spread over knees "
+        f"max|dev| {share * logits_32.abs().max().item():.4e}, centred "
+        f"error {centred:.4e} (not held to a limit)")
+    log(f"[slice] float32 logits {logits_32.cpu().numpy().tolist()}")
+    log(f"[slice] bf16 logits {logits_16.cpu().numpy().tolist()}")
+    if d_logit > LOGIT_RTOL * scale or d_prob > PROB_ATOL:
+        failed.append("logits")
+    if failed:
+        raise SystemExit(f"bf16 serving disagrees with the float32 run: "
+                         f"{failed}")
+
+
+# kernel-name substrings → category of the device-time breakdown (first
+# match wins)
+KERNEL_CATEGORIES = (
+    ("attention (flash_fwd)", ("flash_fwd",)),
+    ("copies", ("memcpy", "memset")),
+    ("resize", ("upsample",)),
+    ("convolution", ("conv", "fprop", "implicit", "winograd", "cudnn")),
+    ("matmul (cuBLAS, cuDNN 1x1)", ("gemm", "cutlass", "xmma", "nvjet")),
+    ("batch norm", ("batch_norm", "bn_fw")),
+    ("max pool", ("max_pool",)),
+    ("reductions", ("reduce",)),
+)
+
+
+def device_breakdown(fn, latency_ms: float) -> None:
+    """Profile one call of ``fn`` and print its device time by kernel
+    category, the top kernels, and the card's idle share of the
+    unprofiled request latency."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    if busy == 0:
+        log("[profile] the profiler saw no device time: breakdown not "
+            "measured")
+        return
+    by_cat: dict = {}
+    for e in kernels:
+        name = e.key.lower()
+        cat = next((c for c, keys in KERNEL_CATEGORIES
+                    if any(k in name for k in keys)), "elementwise/other")
+        by_cat[cat] = by_cat.get(cat, 0.0) + e.self_device_time_total / 1e3
+    log(f"[profile] one request: device busy {busy:.3f} ms of "
+        f"{latency_ms:.3f} ms unprofiled latency (idle share "
+        f"{max(0.0, 1 - busy / latency_ms):.3f})")
+    for cat, ms in sorted(by_cat.items(), key=lambda kv: -kv[1]):
+        log(f"[profile]   {cat:22s} {ms:9.3f} ms  {ms / busy:6.1%}")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+        log(f"[profile]   top: {e.self_device_time_total / 1e3:8.3f} ms "
+            f"x{e.count:<4d} {e.key[:90]}")
+
+
+def phase_slice(card: str):
+    from oaprogressionmmf_torch.ops.flash_attention import flash_attention
+    from oaprogressionmmf_torch.serving import make_predictor
+
+    t0 = time.perf_counter()
+    sd = synth_state_dict()
+    n_params = sum(v.numel() for k, v in sd.items()
+                   if not k.endswith("num_batches_tracked"))
+    log(f"[slice] synthesized {n_params} parameters + BN statistics in "
+        f"{time.perf_counter() - t0:.1f} s")
+    xs = raw_inputs()
+
+    t0 = time.perf_counter()
+    predictor = make_predictor(MODEL_CFG, sd, MODALS, MODEL_CFG["downscale"],
+                               dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    log(f"[slice] strict load of the full-width flagship, bf16 on "
+        f"{predictor.device}: {time.perf_counter() - t0:.1f} s")
+
+    for _ in range(WARMUP_REQUESTS):
+        predictor(xs).cpu()
+    torch.cuda.reset_peak_memory_stats()
+
+    flash_attention.launches = 0
+    latencies = []
+    for _ in range(REQUESTS):
+        t = time.perf_counter()
+        probs = predictor(xs).cpu()
+        latencies.append(time.perf_counter() - t)
+    launches = flash_attention.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    log(f"[slice] {REQUESTS} requests of batch {BATCH}: flash launches "
+        f"{launches} ({launches / REQUESTS:g} per forward)")
+    if launches != 12 * REQUESTS:
+        raise SystemExit(f"expected 12 flash launches per forward, got "
+                         f"{launches} over {REQUESTS}")
+    if probs.shape != (BATCH, 2) or not torch.isfinite(probs).all():
+        raise SystemExit(f"bad probabilities {probs}")
+    if (probs.sum(-1) - 1).abs().max().item() > 1e-5:
+        raise SystemExit(f"probabilities do not sum to 1: {probs}")
+    lat = np.asarray(latencies) * 1e3
+    log(f"[slice] latency per request (raw host arrays -> probs on host): "
+        f"mean {lat.mean():.2f} ms, min {lat.min():.2f}, max "
+        f"{lat.max():.2f}; {BATCH * 1e3 / lat.mean():.1f} knees/s; peak "
+        f"device memory {peak_gb:.2f} GB  [{card}]")
+    device_breakdown(lambda: predictor(xs).cpu(), float(lat.mean()))
+
+    model = predictor.model
+    counts = model._token_counts(model._shapes(3), n_mr=2)
+    counts.append(int(MODEL_CFG["agg"]["num_slices"][3]))
+    bounds = np.cumsum([0] + counts)
+    segments = {name: (int(bounds[i]), int(bounds[i + 1])) for i, name in
+                enumerate(("xr", "dess", "t2", "clin"))}
+    got = capture(predictor, xs)
+    del predictor, model
+    torch.cuda.empty_cache()
+    predictor32 = make_predictor(MODEL_CFG, sd, MODALS,
+                                 MODEL_CFG["downscale"], dtype=torch.float32)
+    log("[slice] bf16 against a float32 (no TF32) run of the same weights "
+        "and inputs:")
+    compare_dtypes(got, capture(predictor32, xs), segments)
+    return launches
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, "
+        f"cuda {torch.version.cuda}; TF32 off for float32 matmuls and convs")
+
+    card = card_line()
+    log(card)
+    phase_build()
+    flash = phase_flash()
+    launches = phase_slice(card)
+
+    kernels = [dict(
+        name="flash_fwd", route="cuda",
+        source="oaprogressionmmf_torch/ops/csrc/flash_fwd.cu",
+        replaces="oaprogressionmmf_tpu/ops/flash_attention.py:54",
+        launches=launches, max_abs_err=flash["max_abs_err"], ms=flash["ms"],
+        plain_ms=flash["plain_ms"], bound_ms=flash["bound_ms"],
+        bound_by=flash["bound_by"], library_ms=flash["library_ms"],
+        per_n=flash["per_n"])]
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

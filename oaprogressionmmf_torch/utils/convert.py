@@ -1,0 +1,142 @@
+"""JAX variables → the port's state dicts.
+
+The JAX package keeps its weights as a ``{"params", "batch_stats"}`` tree
+of arrays; the port's modules carry the reference's torch names. This is
+the port's own copy of the naming logic of the JAX package's
+``utils/torch_interop.py`` (``flax_fe_to_torch_seq``,
+``flax_feat_to_torch``, ``export_reference_checkpoint``), producing torch
+tensors. All transforms are host-side numpy.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+# ResNet stages → indices in the FE's nn.Sequential(conv1, bn1, relu,
+# maxpool, layer1..4)
+_LAYER_TO_SEQ_IDX = {"layer1": 4, "layer2": 5, "layer3": 6, "layer4": 7}
+
+# family → [(JAX subtree, torch prefix, kind)]
+_FAMILY_LAYOUT = {
+    "XR1MR2C1CnnTrf": [("fe_xr", "_fe0", "fe"), ("fe_mr1", "_fe1", "fe"),
+                       ("fe_mr2", "_fe2", "fe"), ("fe_clin", "_fe3", "clin"),
+                       ("agg_1", "_agg_1", "feat"),
+                       ("agg_2", "_agg_2", "feat"),
+                       ("agg_final", "_agg_final", "feat")],
+}
+
+
+def _t(a) -> torch.Tensor:
+    """Dense kernel (in, out) → Linear weight (out, in)."""
+    return torch.from_numpy(np.array(np.asarray(a).T, order="C"))
+
+
+def _conv(w) -> torch.Tensor:
+    """Conv kernel (kh, kw, I/g, O) → (O, I/g, kh, kw)."""
+    return torch.from_numpy(np.array(
+        np.transpose(np.asarray(w), (3, 2, 0, 1)), order="C"))
+
+
+def _a(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a))
+
+
+def _join(prefix: str, name: str) -> str:
+    return f"{prefix}.{name}" if prefix else name
+
+
+def fe_state_dict(params: dict, stats: dict, prefix: str = "") -> dict:
+    """JAX ResNetFE params + batch_stats → ``models.resnet.ResNetFE`` keys."""
+    sd: dict = {}
+
+    def bn(src_p, src_s, dst):
+        sd[f"{dst}.weight"] = _a(src_p["scale"])
+        sd[f"{dst}.bias"] = _a(src_p["bias"])
+        sd[f"{dst}.running_mean"] = _a(src_s["mean"])
+        sd[f"{dst}.running_var"] = _a(src_s["var"])
+        sd[f"{dst}.num_batches_tracked"] = torch.tensor(0)
+
+    sd[_join(prefix, "0.weight")] = _conv(params["conv1"]["kernel"])
+    bn(params["bn1"], stats["bn1"], _join(prefix, "1"))
+    for name in sorted(params):
+        if not name.startswith("layer"):
+            continue
+        layer, b = name.rsplit("_", 1)
+        src_p, src_s = params[name], stats[name]
+        dst = _join(prefix, f"{_LAYER_TO_SEQ_IDX[layer]}.{b}")
+        ci = 0
+        while f"Conv_{ci}" in src_p:
+            sd[f"{dst}.conv{ci + 1}.weight"] = _conv(
+                src_p[f"Conv_{ci}"]["kernel"])
+            bn(src_p[f"BatchNorm_{ci}"], src_s[f"BatchNorm_{ci}"],
+               f"{dst}.bn{ci + 1}")
+            ci += 1
+        if "downsample_conv" in src_p:
+            sd[f"{dst}.downsample.0.weight"] = _conv(
+                src_p["downsample_conv"]["kernel"])
+            bn(src_p["downsample_bn"], src_s["downsample_bn"],
+               f"{dst}.downsample.1")
+    return sd
+
+
+def feat_state_dict(p: dict, prefix: str = "") -> dict:
+    """JAX FeaT params → ``models.feat.FeaT`` keys; q, k and v kernels
+    are concatenated into ``attn_{d}.to_qkv``."""
+    sd: dict = {}
+
+    def dense(src, dst):
+        sd[f"{dst}.weight"] = _t(src["kernel"])
+        sd[f"{dst}.bias"] = _a(src["bias"])
+
+    def norm(src, dst):
+        sd[f"{dst}.weight"] = _a(src["scale"])
+        sd[f"{dst}.bias"] = _a(src["bias"])
+
+    if "cls_token" in p:
+        sd[_join(prefix, "cls_token")] = _a(p["cls_token"])
+    sd[_join(prefix, "pos_embedding")] = _a(p["pos_embedding"])
+    dense(p["patch_to_embedding"], _join(prefix, "patch_to_embedding"))
+    tr = p["transformer"]
+    tp = _join(prefix, "transformer")
+    d = 0
+    while f"prenorm_0_{d}" in tr:
+        norm(tr[f"prenorm_0_{d}"], f"{tp}.prenorm_0_{d}")
+        norm(tr[f"prenorm_1_{d}"], f"{tp}.prenorm_1_{d}")
+        attn = tr[f"attn_{d}"]
+        sd[f"{tp}.attn_{d}.to_qkv.weight"] = _t(np.concatenate(
+            [np.asarray(attn[k]["kernel"]) for k in ("to_q", "to_k", "to_v")],
+            axis=1))
+        dense(attn["to_out"], f"{tp}.attn_{d}.to_out.0")
+        dense(tr[f"ff_{d}"]["Dense_0"], f"{tp}.ff_{d}.net.0")
+        dense(tr[f"ff_{d}"]["Dense_1"], f"{tp}.ff_{d}.net.3")
+        d += 1
+    i = 0
+    while f"mlp_head{i}_norm" in p:
+        hp = _join(prefix, f"mlp_head{i}")
+        norm(p[f"mlp_head{i}_norm"], f"{hp}.0")
+        dense(p[f"mlp_head{i}_dense0"], f"{hp}.1")
+        dense(p[f"mlp_head{i}_dense1"], f"{hp}.4")
+        i += 1
+    return sd
+
+
+def from_jax_variables(model_name: str, variables: dict) -> dict:
+    """JAX ``{"params", "batch_stats"}`` numpy tree → the port's state
+    dict for ``dict_models[model_name]``."""
+    if model_name not in _FAMILY_LAYOUT:
+        raise KeyError(f"{model_name!r} is not ported; ported: "
+                       f"{sorted(_FAMILY_LAYOUT)}")
+    params = variables["params"]
+    stats = variables.get("batch_stats", {})
+    sd: dict = {}
+    for subtree, prefix, kind in _FAMILY_LAYOUT[model_name]:
+        if kind == "fe":
+            sd.update(fe_state_dict(params[subtree], stats.get(subtree, {}),
+                                    prefix))
+        elif kind == "feat":
+            sd.update(feat_state_dict(params[subtree], prefix))
+        elif kind == "clin":
+            sd[f"{prefix}._fe.0.weight"] = _t(params[subtree]["fe"]["kernel"])
+            sd[f"{prefix}._fe.0.bias"] = _a(params[subtree]["fe"]["bias"])
+    return sd

@@ -1,0 +1,97 @@
+"""The port stands alone: it imports neither JAX nor the JAX package, and
+its entry points refuse to fall back to the CPU unless asked."""
+
+import hashlib
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from oaprogressionmmf_torch import resolve_device
+from oaprogressionmmf_torch.ops import _build
+from oaprogressionmmf_torch.serving import make_predictor
+from torch_port_util import FLAGSHIP_MODALS, FLAGSHIP_SMALL
+
+REPO = Path(__file__).resolve().parents[1]
+PORT_MODULES = [
+    "oaprogressionmmf_torch", "oaprogressionmmf_torch.device",
+    "oaprogressionmmf_torch.ops", "oaprogressionmmf_torch.ops._build",
+    "oaprogressionmmf_torch.ops.flash_attention",
+    "oaprogressionmmf_torch.ops.preproc", "oaprogressionmmf_torch.ops.resize",
+    "oaprogressionmmf_torch.models", "oaprogressionmmf_torch.models.feat",
+    "oaprogressionmmf_torch.models.resnet",
+    "oaprogressionmmf_torch.models.families",
+    "oaprogressionmmf_torch.train", "oaprogressionmmf_torch.train.trainer",
+    "oaprogressionmmf_torch.serving", "oaprogressionmmf_torch.utils",
+    "oaprogressionmmf_torch.utils.convert",
+]
+
+
+def test_port_imports_without_jax_or_the_jax_package():
+    code = (
+        "import importlib, sys\n"
+        "for m in ('jax', 'jaxlib', 'flax', 'oaprogressionmmf_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        "before = set(sys.modules)\n"
+        f"for m in {PORT_MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "leaked = [m for m in set(sys.modules) - before\n"
+        "          if m.startswith(('jax', 'flax', 'oaprogressionmmf_tpu'))]\n"
+        "assert not leaked, leaked\n"
+        "print('ok')\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("ok")
+
+
+def test_port_sources_name_no_jax_module():
+    for path in (REPO / "oaprogressionmmf_torch").rglob("*.py"):
+        for line in path.read_text().splitlines():
+            code = line.split("#")[0]
+            assert not code.lstrip().startswith(
+                ("import jax", "from jax", "import flax", "from flax",
+                 "from oaprogressionmmf_tpu", "import oaprogressionmmf_tpu")
+            ), f"{path}: {line}"
+
+
+def test_entry_points_raise_without_a_gpu_unless_cpu_is_asked(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_predictor(FLAGSHIP_SMALL, {}, FLAGSHIP_MODALS,
+                       FLAGSHIP_SMALL["downscale"])
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_kernel_build_is_keyed_by_its_source(tmp_path, monkeypatch):
+    """A library built from one source and one set of nvcc flags is reused
+    for them; an edited source or a changed flag is rebuilt, never served
+    by the stale library."""
+    assert (_build.CSRC_DIR / "flash_fwd.cu").exists()
+    assert _build.BUILD_DIR == REPO / "build"
+    monkeypatch.setattr(_build, "CSRC_DIR", tmp_path)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    (tmp_path / "k.cu").write_text("// v1")
+    digest = hashlib.sha1(
+        b"// v1" + " ".join(_build.NVCC_FLAGS).encode()).hexdigest()[:12]
+    lib = tmp_path / "build" / f"libk-{digest}.so"
+    lib.parent.mkdir()
+    lib.write_bytes(b"")
+    assert _build.build("k") == (lib, "")
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found")
+
+    flags = _build.NVCC_FLAGS
+    monkeypatch.setattr(_build, "_nvcc", no_nvcc)
+    monkeypatch.setattr(_build, "NVCC_FLAGS", flags + ("-G",))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build("k")
+    monkeypatch.setattr(_build, "NVCC_FLAGS", flags)
+    (tmp_path / "k.cu").write_text("// v2")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build("k")

@@ -1,0 +1,71 @@
+"""Shared helpers of the port's parity tests (tests/test_torch_port_*.py).
+
+Weights are drawn with numpy from a seed into the shape tree of a JAX
+module (``jax.eval_shape`` of its init: tracing only, no compile), so the
+JAX module and its port see the same non-trivial values, BatchNorm
+statistics included.
+"""
+
+import numpy as np
+
+import jax
+
+# the flagship family at test size (tests/test_models_families.py sizes,
+# with a downscale so the eval preprocessing's resize runs)
+FLAGSHIP_SMALL = {
+    "name": "XR1MR2C1CnnTrf",
+    "input_size": [[64, 64], [64, 64, 8], [64, 64, 2], [16]],
+    "downscale": [[0.5, 0.5], [0.5, 0.5, 0.5], [0.5, 0.5, 1.0], [1.0]],
+    "input_channels": 1,
+    "output_channels": 2,
+    "output_type": "dict",
+    "debug": False,
+    "restore_weights": False,
+    "fe": {
+        "xr": {"arch": "resnet18", "pretrained": False, "with_gap": True,
+               "dropout": 0.0},
+        "mr": {"arch": "resnet18", "pretrained": False, "with_gap": True,
+               "dropout": 0.0},
+        "clin": {"dim_in": 9, "dim_out": 512, "dropout": 0.1},
+    },
+    "agg": {"num_slices": [1, 4, 2, 1], "depth": 1, "heads": 2,
+            "emb_dropout": 0.1, "mlp_dim": 64, "mlp_dropout": 0.1},
+}
+FLAGSHIP_MODALS = ["xr_pa", "sag_3d_dess", "sag_t2_map", "clin"]
+
+
+def synth_variables(init_fn, seed=0):
+    """Fill the variable tree of ``init_fn()`` (a JAX module init) with
+    numpy draws: BN scale and var in [0.5, 1.5], BN/dense biases and BN
+    means small, kernels fan-in scaled, embeddings N(0, 1)."""
+    shapes = jax.eval_shape(init_fn)
+    rng = np.random.RandomState(seed)
+
+    def fill(path, leaf):
+        name = str(getattr(path[-1], "key", ""))
+        shape = leaf.shape
+        if name in ("scale", "var"):
+            arr = rng.uniform(0.5, 1.5, shape)
+        elif name in ("bias", "mean"):
+            arr = rng.normal(0.0, 0.1, shape)
+        elif name in ("cls_token", "pos_embedding"):
+            arr = rng.normal(0.0, 1.0, shape)
+        else:
+            fan_in = int(np.prod(shape[:-1]))
+            arr = rng.normal(0.0, 1.0 / np.sqrt(max(fan_in, 1)), shape)
+        return arr.astype(np.float32)
+
+    return jax.tree_util.tree_map_with_path(fill, shapes)
+
+
+def flagship_raw_inputs(batch):
+    """Raw per-modality inputs of FLAGSHIP_SMALL as the host ships them:
+    uint8 XR and DESS, float T2 maps, float clinical values."""
+    rng = np.random.RandomState(0)
+    return (
+        rng.randint(0, 256, (batch, 1, 64, 64), dtype=np.uint8),
+        rng.randint(0, 256, (batch, 1, 64, 64, 8), dtype=np.uint8),
+        rng.randint(0, 1000, (batch, 1, 64, 64, 2)).astype(np.float32)
+        * 1e-4,
+        rng.rand(batch, 1, 9).astype(np.float32),
+    )
