@@ -21,7 +21,26 @@ Phases (any failure exits non-zero; nothing is caught):
      before and read just after; probabilities checked; the bf16 run's
      tokens into the final FeaT, its states and its logits compared with a
      float32 (no TF32) run of the port on the same inputs, beside how far
-     knees and slices differ in the same quantities.
+     knees and slices differ in the same quantities;
+ 3b. the flash backward kernels K2 (dq) and K3 (dk, dv) against their
+     plain PyTorch versions on the same inputs and the same (O, lse) from
+     K1, at the training step's shapes (B, H) = (8, 8), D = 256, N in
+     {25, 64, 92, 2432}, and D in {32, 64, 128} for correctness only; times
+     of each kernel, the plain versions, the backward of
+     F.scaled_dot_product_attention on a retained graph (library_ms, a
+     yardstick the port never calls) and the bound;
+  5. the flagship training step at full width: the same weights loaded
+     into TrainRuntime (float32 parameters, bf16 autocast), raw batch-8
+     inputs, focal loss, Adam with coupled weight decay under the warmup
+     schedule; warm-up steps, then timed steps with every launch count set
+     to 0 just before and read just after (12 launches of each of K1, K2
+     and K3 per step); losses finite, every parameter and BN running
+     statistic moved and finite; ms per step, knees/s, peak memory and a
+     profiler breakdown of one step;
+ 5b. one float32 (no TF32, deterministic cuDNN) step at batch 2 without
+     dropout through K1/K2/K3 against the same step with every Attention
+     on the plain attention: loss and every parameter's Adam first moment
+     (0.1 of its gradient) compared.
 
 Prints progress lines, then a JSON line of kernel records (with the
 per-length times behind each sum), the card line,
@@ -31,10 +50,14 @@ non-zero and prints no result.
 
 from __future__ import annotations
 
+import copy
+import gc
+import importlib
 import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -94,6 +117,43 @@ LOGIT_RTOL = 5e-2
 PROB_ATOL = 2e-2
 CENTRED_RTOL = 0.25
 
+# flash backward (K2, K3) at the training step's shapes: batch 8, 8 heads
+BWD_BH = (8, 8)
+# |dX − dX_plain| bars: float32 5e-4, the JAX package's gradient bar
+# (tests/test_ops_attention_t2.py:47); bf16 min(4e-2, 2e-2·max|plain|):
+# 4e-2 is the JAX bf16 gradient bar (:50), and the kernels and the plain
+# version differ only by float32 reassociation before the final bf16
+# rounding (2^-8 of a value), so 2e-2 of the largest grad is ample
+BWD_TOL = {torch.float32: {"abs": 5e-4, "rel": None},
+           torch.bfloat16: {"abs": 4e-2, "rel": 2e-2}}
+
+# the training step: prog_fus.yaml's training config
+TRAIN_BATCH = 8
+TRAIN_WARMUP = 2
+TRAIN_STEPS = 5
+STEPS_PER_EPOCH = 100      # epoch 0 of the warmup: lr 1e-5 in every step
+TRAIN_CFG = {
+    "loss": {"name": "FocalLoss", "params": {"reduction": "mean",
+                                             "gamma": 2.0}},
+    "optim": {"name": "Adam", "lr_init": 1e-4, "weight_decay": 1e-4},
+    "sched": {"name": "CustomWarmupStaticDecayLR",
+              "params": {"epochs_warmup": 5, "epochs_static": 100,
+                         "epochs_decay": 1}},
+    "batch_size": TRAIN_BATCH,
+    "augment_full_res": True,
+    "steps_per_dispatch": 1,
+}
+# phase 5b: a float32 step through the kernels against the same step
+# through the plain attention. The two differ only by float32
+# reassociation inside attention; the bars leave ~100× room for it.
+CHECK_BATCH = 2
+GRAD_RTOL = 1e-3           # |Δ exp_avg| ≤ GRAD_RTOL · max|exp_avg| per tensor
+LOSS_RTOL = 1e-5
+# parameters the loss does not reach (the per-MRI FeaTs' heads, whose
+# outputs the flagship discards): zero grads, so only the weight decay
+# moves them, and a tensor that is all zeros stays where it is
+UNREACHED = ("_agg_1.mlp_head0.", "_agg_2.mlp_head0.")
+
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -125,6 +185,15 @@ def time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def roofline_ms(nbytes: float, flops: float, dtype) -> tuple[float, str]:
+    """The larger of the bytes over the memory rate and the operations over
+    the type's peak, in ms, and which of the two it is."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
+                                 "operations")
+
+
 def flash_bound_ms(n: int, dtype) -> tuple[float, str]:
     """Least time for one call: q, k, v read once, O and lse written once;
     two N×N×D products at the type's peak."""
@@ -132,17 +201,29 @@ def flash_bound_ms(n: int, dtype) -> tuple[float, str]:
     elt = torch.tensor([], dtype=dtype).element_size()
     nbytes = 4 * b * h * n * FLASH_D * elt + b * h * n * 4
     flops = 4 * b * h * n * n * FLASH_D
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
-                                 "operations")
+    return roofline_ms(nbytes, flops, dtype)
+
+
+def bwd_bound_ms(kernel: str, n: int, dtype) -> tuple[float, str]:
+    """Least time for one call at BWD_BH, D = FLASH_D. K2 reads q, k, v, O,
+    dO and lse and writes dQ and delta; its three N×N×D products are S, dP
+    and dS·K. K3 reads q, k, v, dO, lse and delta and writes dK and dV; its
+    four are S, dP, Pᵀ·dO and dSᵀ·Q."""
+    b, h = BWD_BH
+    elt = torch.tensor([], dtype=dtype).element_size()
+    tensors, rows, products = {"dq": (6, 2, 3), "dkv": (6, 2, 4)}[kernel]
+    nbytes = tensors * b * h * n * FLASH_D * elt + rows * b * h * n * 4
+    flops = products * 2 * b * h * n * n * FLASH_D
+    return roofline_ms(nbytes, flops, dtype)
 
 
 def phase_build():
     from oaprogressionmmf_torch.ops import _build
     sources = sorted(p.stem for p in _build.CSRC_DIR.glob("*.cu"))
     t0 = time.perf_counter()
-    results = [_build.build(name) for name in sources]
+    # one nvcc per source, all started together
+    with ThreadPoolExecutor(len(sources)) as pool:
+        results = list(pool.map(_build.build, sources))
     log(f"[build] {len(sources)} source(s) {sources} built in "
         f"{time.perf_counter() - t0:.2f} s")
     for name, (path, report) in zip(sources, results):
@@ -233,6 +314,154 @@ def phase_flash():
     return record
 
 
+def flash_module():
+    """The flash-attention module (the package re-exports its function
+    under the same name)."""
+    return importlib.import_module(
+        "oaprogressionmmf_torch.ops.flash_attention")
+
+
+def check_flash_bwd(q, k, v, do, scale) -> dict:
+    """K2 and K3 against their plain versions on the same inputs and the
+    same (O, lse) from K1; returns each kernel's max|dX| over its grads
+    ({"dq": ..., "dkv": ...}) and exits if a grad is outside its bar."""
+    fa = flash_module()
+    out, lse = fa.flash_attention(q, k, v, scale)
+    dq, delta = fa.launch_bwd_dq(q, k, v, out, lse, do, scale)
+    dk, dv = fa.launch_bwd_dkv(q, k, v, do, lse, delta, scale)
+    want_dq, want_delta = fa.bwd_dq_plain(q, k, v, out, lse, do, scale)
+    want_dk, want_dv = fa.bwd_dkv_plain(q, k, v, do, lse, want_delta, scale)
+    torch.cuda.synchronize()
+    tol = BWD_TOL[q.dtype]
+    worst, failed, parts = {"dq": 0.0, "dkv": 0.0}, [], []
+    for name, got, want in (("dq", dq, want_dq), ("dk", dk, want_dk),
+                            ("dv", dv, want_dv),
+                            ("delta", delta, want_delta)):
+        err = (got.float() - want.float()).abs().max().item()
+        peak = want.float().abs().max().item()
+        bar = tol["abs"] if tol["rel"] is None else min(tol["abs"],
+                                                         tol["rel"] * peak)
+        if name != "delta":
+            kern = "dq" if name == "dq" else "dkv"
+            worst[kern] = max(worst[kern], err)
+        elif q.dtype == torch.float32:
+            bar = 1e-5 * max(1.0, peak)    # a float32 row sum
+        else:
+            bar = 1e-4 * max(1.0, peak)    # the same sum of widened bf16
+        parts.append(f"{name} {err:.2e}/{bar:.1e}")
+        if err > bar:
+            failed.append(name)
+    log(f"[flash_bwd] {str(q.dtype)[6:]:8s} (B,H,N,D)={tuple(q.shape)} "
+        f"scale={scale:.4f} max|d|/bar: {', '.join(parts)} "
+        f"{'ok' if not failed else 'FAIL'}")
+    if failed:
+        raise SystemExit(f"flash backward kernels disagree with their plain "
+                         f"versions: {failed}")
+    return worst
+
+
+def sdpa_backward(q, k, v, do, scale):
+    """A callable that runs the backward of F.scaled_dot_product_attention
+    on a retained graph, and the name of the longest kernel it launches
+    (which SDPA backend served it)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+    out = F.scaled_dot_product_attention(qs, ks, vs, scale=scale)
+
+    def run():
+        return torch.autograd.grad(out, (qs, ks, vs), do, retain_graph=True)
+
+    run()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and e.self_device_time_total > 0
+               and not getattr(e, "is_user_annotation", False)]
+    top = max(kernels, key=lambda e: e.self_device_time_total).key \
+        if kernels else "not measured"
+    return run, top
+
+
+def phase_flash_bwd() -> dict:
+    fa = flash_module()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    b, h = BWD_BH
+
+    def inputs(n, d, dtype):
+        return tuple(torch.randn(b, h, n, d, device=dev,
+                                 generator=gen).to(dtype) for _ in range(4))
+
+    for d in (32, 64, 128):
+        for dtype in (torch.float32, torch.bfloat16):
+            for n in (92, 130):
+                check_flash_bwd(*inputs(n, d, dtype), d ** -0.5)
+
+    records = {kern: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+                      "bound_ms": 0.0, "max_abs_err": 0.0, "per_n": [],
+                      "parts": {"bytes": 0.0, "operations": 0.0}}
+               for kern in ("dq", "dkv")}
+    for dtype in (torch.float32, torch.bfloat16):
+        for n in CHECK_N:
+            q, k, v, do = inputs(n, FLASH_D, dtype)
+            for scale in (FLASH_SCALE, FLASH_D ** -0.5):
+                errs = check_flash_bwd(q, k, v, do, scale)
+                if dtype == torch.bfloat16 and n in MAIN_PATH_N \
+                        and scale == FLASH_SCALE:
+                    for kern, rec in records.items():
+                        rec["max_abs_err"] = max(rec["max_abs_err"],
+                                                 errs[kern])
+            if dtype != torch.bfloat16:
+                continue
+            out, lse = fa.flash_attention(q, k, v, FLASH_SCALE)
+            _, delta = fa.launch_bwd_dq(q, k, v, out, lse, do, FLASH_SCALE)
+            iters = 5 if n > 1000 else 200
+            sdpa, backend = sdpa_backward(q, k, v, do, FLASH_SCALE)
+            t_lib = time_ms(sdpa, iters)
+            fns = {
+                "dq": (lambda: fa.launch_bwd_dq(q, k, v, out, lse, do,
+                                                FLASH_SCALE),
+                       lambda: fa.bwd_dq_plain(q, k, v, out, lse, do,
+                                               FLASH_SCALE)),
+                "dkv": (lambda: fa.launch_bwd_dkv(q, k, v, do, lse, delta,
+                                                  FLASH_SCALE),
+                        lambda: fa.bwd_dkv_plain(q, k, v, do, lse, delta,
+                                                 FLASH_SCALE)),
+            }
+            line = []
+            for kern, (kernel_fn, plain_fn) in fns.items():
+                t_k, t_p = time_ms(kernel_fn, iters), time_ms(plain_fn, iters)
+                bound, by = bwd_bound_ms(kern, n, dtype)
+                rec = records[kern]
+                rec["per_n"].append(dict(n=n, ms=t_k, plain_ms=t_p,
+                                         library_ms=t_lib, bound_ms=bound,
+                                         bound_by=by, sdpa_backend=backend))
+                line.append(f"{kern} {t_k:.4f} ms (plain {t_p:.4f}, bound "
+                            f"{bound:.5f} {by})")
+                if n in MAIN_PATH_N:
+                    reps = MAIN_PATH_N[n]
+                    rec["ms"] += reps * t_k
+                    rec["plain_ms"] += reps * t_p
+                    rec["library_ms"] += reps * t_lib
+                    rec["bound_ms"] += reps * bound
+                    rec["parts"][by] += reps * bound
+            log(f"[flash_bwd] bf16 N={n:5d} (B,H,D)=({b},{h},{FLASH_D}) "
+                f"device: {'; '.join(line)}; sum "
+                f"{sum(r['per_n'][-1]['ms'] for r in records.values()):.4f}"
+                f" ms; sdpa backward {t_lib:.4f} ms ({backend[:60]})")
+    for kern, rec in records.items():
+        parts = rec.pop("parts")
+        rec["bound_by"] = max(parts, key=parts.get)
+        log(f"[flash_bwd] {kern} per training step (12 launches, bf16): "
+            f"kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
+            f"bound {rec['bound_ms']:.5f} ms; sdpa backward (dq, dk, dv) "
+            f"{rec['library_ms']:.4f} ms")
+    return records
+
+
 def synth_state_dict():
     """bench.py's parameter recipe over bench_param_spec.json (params and
     batch_stats; the int8 quant_acts are not part of the bf16 path)."""
@@ -262,27 +491,32 @@ def synth_state_dict():
     return from_jax_variables(MODEL_CFG["name"], tree)
 
 
-def raw_inputs():
-    """Raw inputs at bench.py's sizes and types, batch 4: uint8 XR and
+def raw_inputs(batch: int = BATCH):
+    """Raw inputs at bench.py's sizes and types, ``batch`` knees: uint8 XR and
     DESS, float T2 maps, float clinical values. bench.py's uniform noise
     is dimmed to a tenth in some 100² blocks of each X-ray, a share that
     grows from knee to knee, and scaled by an amplitude drawn for each MRI
     slice, so that knees and slices differ in their tokens (per-knee
     min-max scaling would erase one amplitude per knee)."""
     rng = np.random.RandomState(0)
-    dark = (rng.rand(BATCH, 1, 7, 1, 7, 1)
-            < np.linspace(0.1, 0.9, BATCH)[:, None, None, None, None, None])
-    xr = (rng.randint(0, 256, (BATCH, 1, 7, 100, 7, 100)).astype(np.float32)
+    dark = (rng.rand(batch, 1, 7, 1, 7, 1)
+            < np.linspace(0.1, 0.9, batch)[:, None, None, None, None, None])
+    xr = (rng.randint(0, 256, (batch, 1, 7, 100, 7, 100)).astype(np.float32)
           * np.where(dark, 0.1, 1.0).astype(np.float32))
-    dess = (rng.randint(0, 256, (BATCH, 1, 320, 320, 128))
+    dess = (rng.randint(0, 256, (batch, 1, 320, 320, 128))
             .astype(np.float32)
-            * rng.uniform(0.1, 1.0, (BATCH, 1, 1, 1, 128)).astype(np.float32))
-    t2 = (rng.randint(0, 1000, (BATCH, 1, 320, 320, 25)).astype(np.float32)
+            * rng.uniform(0.1, 1.0, (batch, 1, 1, 1, 128)).astype(np.float32))
+    t2 = (rng.randint(0, 1000, (batch, 1, 320, 320, 25)).astype(np.float32)
           * 1e-4
-          * rng.uniform(0.1, 1.0, (BATCH, 1, 1, 1, 25)).astype(np.float32))
-    return (xr.reshape(BATCH, 1, 700, 700).astype(np.uint8),
+          * rng.uniform(0.1, 1.0, (batch, 1, 1, 1, 25)).astype(np.float32))
+    return (xr.reshape(batch, 1, 700, 700).astype(np.uint8),
             dess.astype(np.uint8), t2,
-            rng.rand(BATCH, 1, 9).astype(np.float32))
+            rng.rand(batch, 1, 9).astype(np.float32))
+
+
+def labels(batch: int) -> np.ndarray:
+    """Progression targets in {0, 1}, from their own numpy seed."""
+    return np.random.RandomState(1).randint(0, 2, batch).astype(np.int64)
 
 
 def capture(predictor, xs) -> dict:
@@ -356,10 +590,15 @@ def compare_dtypes(got: dict, want: dict, segments: dict) -> None:
 # kernel-name substrings → category of the device-time breakdown (first
 # match wins)
 KERNEL_CATEGORIES = (
+    ("attention backward (flash_bwd)", ("flash_bwd_dq_kernel",
+                                        "flash_bwd_dkv_kernel")),
     ("attention (flash_fwd)", ("flash_fwd",)),
     ("copies", ("memcpy", "memset")),
     ("resize", ("upsample",)),
-    ("convolution", ("conv", "fprop", "implicit", "winograd", "cudnn")),
+    ("rotation (grid_sample)", ("grid_sampler", "affine_grid")),
+    ("optimizer (Adam)", ("adam", "multi_tensor_apply")),
+    ("convolution", ("conv", "fprop", "dgrad", "wgrad", "implicit",
+                     "winograd", "cudnn")),
     ("matmul (cuBLAS, cuDNN 1x1)", ("gemm", "cutlass", "xmma", "nvjet")),
     ("batch norm", ("batch_norm", "bn_fw")),
     ("max pool", ("max_pool",)),
@@ -367,19 +606,22 @@ KERNEL_CATEGORIES = (
 )
 
 
-def device_breakdown(fn, latency_ms: float) -> None:
+def device_breakdown(fn, latency_ms: float, what: str = "request") -> None:
     """Profile one call of ``fn`` and print its device time by kernel
     category, the top kernels, and the card's idle share of the
-    unprofiled request latency."""
+    unprofiled latency of one ``what``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         fn()
+    # user annotations (e.g. Optimizer.step#Adam.step) also carry device
+    # time: the span of the kernels inside them, which are counted already
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA
-               and e.self_device_time_total > 0]
+               and e.self_device_time_total > 0
+               and not getattr(e, "is_user_annotation", False)]
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
     if busy == 0:
         log("[profile] the profiler saw no device time: breakdown not "
@@ -391,26 +633,20 @@ def device_breakdown(fn, latency_ms: float) -> None:
         cat = next((c for c, keys in KERNEL_CATEGORIES
                     if any(k in name for k in keys)), "elementwise/other")
         by_cat[cat] = by_cat.get(cat, 0.0) + e.self_device_time_total / 1e3
-    log(f"[profile] one request: device busy {busy:.3f} ms of "
+    log(f"[profile] one {what}: device busy {busy:.3f} ms of "
         f"{latency_ms:.3f} ms unprofiled latency (idle share "
         f"{max(0.0, 1 - busy / latency_ms):.3f})")
     for cat, ms in sorted(by_cat.items(), key=lambda kv: -kv[1]):
-        log(f"[profile]   {cat:22s} {ms:9.3f} ms  {ms / busy:6.1%}")
+        log(f"[profile]   {cat:30s} {ms:9.3f} ms  {ms / busy:6.1%}")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
         log(f"[profile]   top: {e.self_device_time_total / 1e3:8.3f} ms "
             f"x{e.count:<4d} {e.key[:90]}")
 
 
-def phase_slice(card: str):
+def phase_slice(card: str, sd: dict):
     from oaprogressionmmf_torch.ops.flash_attention import flash_attention
     from oaprogressionmmf_torch.serving import make_predictor
 
-    t0 = time.perf_counter()
-    sd = synth_state_dict()
-    n_params = sum(v.numel() for k, v in sd.items()
-                   if not k.endswith("num_batches_tracked"))
-    log(f"[slice] synthesized {n_params} parameters + BN statistics in "
-        f"{time.perf_counter() - t0:.1f} s")
     xs = raw_inputs()
 
     t0 = time.perf_counter()
@@ -466,6 +702,151 @@ def phase_slice(card: str):
     return launches
 
 
+def launch_counts() -> tuple:
+    fa = flash_module()
+    return (fa.flash_attention.launches, fa.flash_attention_bwd.launches_dq,
+            fa.flash_attention_bwd.launches_dkv)
+
+
+def reset_launch_counts() -> None:
+    fa = flash_module()
+    fa.flash_attention.launches = 0
+    fa.flash_attention_bwd.launches_dq = 0
+    fa.flash_attention_bwd.launches_dkv = 0
+
+
+def train_runtime(sd: dict, model_cfg: dict, dtype):
+    from oaprogressionmmf_torch.train.trainer import TrainRuntime
+    return TrainRuntime({"model": model_cfg, "training": TRAIN_CFG}, MODALS,
+                        model_cfg["downscale"], STEPS_PER_EPOCH,
+                        state_dict=sd, dtype=dtype)
+
+
+def phase_train(card: str, sd: dict) -> tuple:
+    """The full-width bf16 training step (phase 5); returns the launch
+    counts of the timed steps."""
+    t0 = time.perf_counter()
+    rt = train_runtime(sd, MODEL_CFG, torch.bfloat16)
+    torch.cuda.synchronize()
+    log(f"[train] strict load into TrainRuntime, float32 parameters on "
+        f"{rt.device}, bf16 autocast: {time.perf_counter() - t0:.1f} s")
+    xs, ys = raw_inputs(TRAIN_BATCH), labels(TRAIN_BATCH)
+    gen = torch.Generator(device=rt.device).manual_seed(0)  # augmentation
+    torch.manual_seed(0)                                     # dropout
+    params0 = {n: p.detach().clone() for n, p in rt.model.named_parameters()}
+    stats0 = {n: b.clone() for n, b in rt.model.named_buffers()
+              if n.endswith(("running_mean", "running_var"))}
+
+    for _ in range(TRAIN_WARMUP):
+        rt.train_step(xs, ys, gen)[0].item()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    reset_launch_counts()
+    latencies, losses = [], []
+    for _ in range(TRAIN_STEPS):
+        t = time.perf_counter()
+        loss, logits = rt.train_step(xs, ys, gen)
+        losses.append(loss.item())
+        latencies.append(time.perf_counter() - t)
+    counts = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    log(f"[train] {TRAIN_STEPS} steps of batch {TRAIN_BATCH}: launches K1 "
+        f"{counts[0]}, K2 {counts[1]}, K3 {counts[2]} (per step "
+        f"{[c / TRAIN_STEPS for c in counts]}); losses {losses}")
+    if counts != (12 * TRAIN_STEPS,) * 3:
+        raise SystemExit(f"expected 12 launches of each of K1, K2 and K3 per "
+                         f"step, got {counts} over {TRAIN_STEPS}")
+    if not all(np.isfinite(losses)) or logits.shape != (TRAIN_BATCH, 2) \
+            or not torch.isfinite(logits).all():
+        raise SystemExit(f"non-finite loss or bad logits: {losses}")
+    stuck, bad = [], []
+    for n, p in rt.model.named_parameters():
+        if not torch.isfinite(p).all():
+            bad.append(n)
+        elif torch.equal(p, params0[n]) and not (
+                n.startswith(UNREACHED) and not p.any()):
+            stuck.append(n)
+    for n, b in rt.model.named_buffers():
+        if n in stats0:
+            if not torch.isfinite(b).all():
+                bad.append(n)
+            elif torch.equal(b, stats0[n]):
+                stuck.append(n)
+    n_zero = sum(1 for n, p in rt.model.named_parameters()
+                 if n.startswith(UNREACHED) and not p.any())
+    log(f"[train] {len(params0)} parameter tensors and {len(stats0)} BN "
+        f"running statistics: {len(stuck)} unmoved, {len(bad)} non-finite "
+        f"({n_zero} all-zero tensors the loss does not reach may stay)")
+    if stuck or bad:
+        raise SystemExit(f"unmoved {stuck[:5]}, non-finite {bad[:5]}")
+    del params0, stats0
+
+    lat = np.asarray(latencies) * 1e3
+    log(f"[train] ms per step (raw host arrays -> loss on host): mean "
+        f"{lat.mean():.2f}, min {lat.min():.2f}, max {lat.max():.2f}; "
+        f"{TRAIN_BATCH * 1e3 / lat.mean():.2f} knees/s; peak device memory "
+        f"{peak_gb:.2f} GB  [{card}]")
+    device_breakdown(lambda: rt.train_step(xs, ys, gen)[0].item(),
+                     float(lat.mean()), what="training step")
+    return counts
+
+
+def phase_train_check(sd: dict) -> None:
+    """One float32 step through K1/K2/K3 against the same step through the
+    plain attention (phase 5b)."""
+    from oaprogressionmmf_torch.models.feat import Attention
+    cfg = copy.deepcopy(MODEL_CFG)
+    cfg["fe"]["clin"]["dropout"] = 0.0
+    cfg["agg"].update(emb_dropout=0.0, mlp_dropout=0.0)
+    torch.backends.cudnn.deterministic = True
+    xs, ys = raw_inputs(CHECK_BATCH), labels(CHECK_BATCH)
+    runs = {}
+    draws = None
+    for impl in ("flash", "reference"):
+        rt = train_runtime(sd, cfg, torch.float32)
+        if draws is None:
+            draws = rt.sample_draws(
+                torch.Generator(device=rt.device).manual_seed(2), CHECK_BATCH)
+        for m in rt.model.modules():
+            if isinstance(m, Attention):
+                m.attn_impl = impl
+        reset_launch_counts()
+        loss, _ = rt.train_step(xs, ys, draws=draws)
+        runs[impl] = (loss.item(), launch_counts(),
+                      {n: rt.optimizer.state[p]["exp_avg"]
+                       for n, p in rt.model.named_parameters()})
+        del rt
+        gc.collect()
+        torch.cuda.empty_cache()
+    (loss_k, counts_k, mom_k), (loss_r, counts_r, mom_r) = (
+        runs["flash"], runs["reference"])
+    worst_name, worst = "", 0.0
+    failed = []
+    for n, m_r in mom_r.items():
+        peak = m_r.abs().max().item()
+        err = (mom_k[n] - m_r).abs().max().item()
+        ratio = err / peak if peak else (0.0 if err == 0 else float("inf"))
+        if ratio > worst:
+            worst_name, worst = n, ratio
+        if ratio > GRAD_RTOL:
+            failed.append(n)
+    d_loss = abs(loss_k - loss_r) / abs(loss_r)
+    log(f"[train-check] float32 batch {CHECK_BATCH}, no dropout: kernels "
+        f"(launches {counts_k}) against plain attention (launches "
+        f"{counts_r}): loss {loss_k:.8f} vs {loss_r:.8f} (rel {d_loss:.2e}, "
+        f"tol {LOSS_RTOL}); largest max|dm|/max|m| over {len(mom_r)} "
+        f"tensors {worst:.3e} ({worst_name}; tol {GRAD_RTOL}) "
+        f"{'ok' if not failed and d_loss <= LOSS_RTOL else 'FAIL'}")
+    if counts_k != (12, 12, 12) or counts_r != (0, 0, 0):
+        raise SystemExit(f"launch counts {counts_k} (kernels) and {counts_r} "
+                         f"(plain attention); expected 12 each and none")
+    if failed or d_loss > LOSS_RTOL:
+        raise SystemExit(f"the kernel step disagrees with the plain-attention "
+                         f"step: loss rel {d_loss:.2e}, tensors {failed[:8]}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -479,16 +860,42 @@ def main() -> int:
     log(card)
     phase_build()
     flash = phase_flash()
-    launches = phase_slice(card)
+    bwd = phase_flash_bwd()
 
+    t0 = time.perf_counter()
+    sd = synth_state_dict()
+    n_params = sum(v.numel() for k, v in sd.items()
+                   if not k.endswith("num_batches_tracked"))
+    log(f"[slice] synthesized {n_params} parameters + BN statistics in "
+        f"{time.perf_counter() - t0:.1f} s")
+    launches = phase_slice(card, sd)
+    gc.collect()                 # the inference predictors are freed
+    torch.cuda.empty_cache()
+    train_counts = phase_train(card, sd)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_train_check(sd)
+
+    src = "oaprogressionmmf_torch/ops/csrc/"
     kernels = [dict(
-        name="flash_fwd", route="cuda",
-        source="oaprogressionmmf_torch/ops/csrc/flash_fwd.cu",
+        name="flash_fwd", route="cuda", source=src + "flash_fwd.cu",
         replaces="oaprogressionmmf_tpu/ops/flash_attention.py:54",
-        launches=launches, max_abs_err=flash["max_abs_err"], ms=flash["ms"],
+        launches=launches, launches_train=train_counts[0],
+        max_abs_err=flash["max_abs_err"], ms=flash["ms"],
         plain_ms=flash["plain_ms"], bound_ms=flash["bound_ms"],
         bound_by=flash["bound_by"], library_ms=flash["library_ms"],
         per_n=flash["per_n"])]
+    for kern, line, count in (("dq", 155, train_counts[1]),
+                              ("dkv", 193, train_counts[2])):
+        rec = bwd[kern]
+        kernels.append(dict(
+            name=f"flash_bwd_{kern}", route="cuda", source=src + "flash_bwd.cu",
+            replaces=f"oaprogressionmmf_tpu/ops/flash_attention.py:{line}",
+            launches=count, max_abs_err=rec["max_abs_err"], ms=rec["ms"],
+            plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
+            bound_by=rec["bound_by"], library_ms=rec["library_ms"],
+            library_computes="dq, dk and dv (the whole SDPA backward)",
+            per_n=rec["per_n"]))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -20,6 +20,7 @@ import math
 from typing import Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from .feat import FeaT
@@ -166,13 +167,20 @@ class _XrMrFusionBase(nn.Module):
     def _dtype(self):
         return next(self.parameters()).dtype
 
+    def _fe_dropout(self, feats, branch):
+        """``fe.<branch>.dropout`` on the FE features, in train mode."""
+        p = float(self.config["fe"][branch].get("dropout") or 0.0)
+        return F.dropout(feats, p, self.training) if p else feats
+
     def _xr_tokens(self, fe, x):
-        return _tokens_from_maps(fe(x.to(self._dtype())), x.shape[0])
+        feats = self._fe_dropout(fe(x.to(self._dtype())), "xr")
+        return _tokens_from_maps(feats, x.shape[0])
 
     def _mr_tokens(self, fe, x):
         slices, _ = _fold_volume_to_slices(x.to(self._dtype()),
                                            self.dims_view)
-        return _tokens_from_maps(fe(slices), x.shape[0])
+        feats = self._fe_dropout(fe(slices), "mr")
+        return _tokens_from_maps(feats, x.shape[0])
 
 
 class XR1MR2C1CnnTrf(_XrMrFusionBase):

@@ -1,1 +1,1 @@
-"""Evaluation runtime of the port."""
+"""Training and evaluation runtime of the port."""

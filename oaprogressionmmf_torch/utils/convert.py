@@ -46,36 +46,44 @@ def _join(prefix: str, name: str) -> str:
     return f"{prefix}.{name}" if prefix else name
 
 
-def fe_state_dict(params: dict, stats: dict, prefix: str = "") -> dict:
-    """JAX ResNetFE params + batch_stats → ``models.resnet.ResNetFE`` keys."""
+def _sub(tree, name):
+    return None if tree is None else tree[name]
+
+
+def fe_state_dict(params: dict, stats: dict | None,
+                  prefix: str = "") -> dict:
+    """JAX ResNetFE params + batch_stats → ``models.resnet.ResNetFE`` keys.
+    ``stats=None`` maps the parameters only."""
     sd: dict = {}
 
     def bn(src_p, src_s, dst):
         sd[f"{dst}.weight"] = _a(src_p["scale"])
         sd[f"{dst}.bias"] = _a(src_p["bias"])
+        if src_s is None:
+            return
         sd[f"{dst}.running_mean"] = _a(src_s["mean"])
         sd[f"{dst}.running_var"] = _a(src_s["var"])
         sd[f"{dst}.num_batches_tracked"] = torch.tensor(0)
 
     sd[_join(prefix, "0.weight")] = _conv(params["conv1"]["kernel"])
-    bn(params["bn1"], stats["bn1"], _join(prefix, "1"))
+    bn(params["bn1"], _sub(stats, "bn1"), _join(prefix, "1"))
     for name in sorted(params):
         if not name.startswith("layer"):
             continue
         layer, b = name.rsplit("_", 1)
-        src_p, src_s = params[name], stats[name]
+        src_p, src_s = params[name], _sub(stats, name)
         dst = _join(prefix, f"{_LAYER_TO_SEQ_IDX[layer]}.{b}")
         ci = 0
         while f"Conv_{ci}" in src_p:
             sd[f"{dst}.conv{ci + 1}.weight"] = _conv(
                 src_p[f"Conv_{ci}"]["kernel"])
-            bn(src_p[f"BatchNorm_{ci}"], src_s[f"BatchNorm_{ci}"],
+            bn(src_p[f"BatchNorm_{ci}"], _sub(src_s, f"BatchNorm_{ci}"),
                f"{dst}.bn{ci + 1}")
             ci += 1
         if "downsample_conv" in src_p:
             sd[f"{dst}.downsample.0.weight"] = _conv(
                 src_p["downsample_conv"]["kernel"])
-            bn(src_p["downsample_bn"], src_s["downsample_bn"],
+            bn(src_p["downsample_bn"], _sub(src_s, "downsample_bn"),
                f"{dst}.downsample.1")
     return sd
 
@@ -123,17 +131,22 @@ def feat_state_dict(p: dict, prefix: str = "") -> dict:
 
 def from_jax_variables(model_name: str, variables: dict) -> dict:
     """JAX ``{"params", "batch_stats"}`` numpy tree → the port's state
-    dict for ``dict_models[model_name]``."""
+    dict for ``dict_models[model_name]``.
+
+    Without ``batch_stats`` only the parameters are mapped: that carries
+    any tree of the parameters' structure across by name, e.g. optax's
+    Adam moments ``mu`` and ``nu`` (``{"params": mu}``)."""
     if model_name not in _FAMILY_LAYOUT:
         raise KeyError(f"{model_name!r} is not ported; ported: "
                        f"{sorted(_FAMILY_LAYOUT)}")
     params = variables["params"]
-    stats = variables.get("batch_stats", {})
+    stats = variables.get("batch_stats")
     sd: dict = {}
     for subtree, prefix, kind in _FAMILY_LAYOUT[model_name]:
         if kind == "fe":
-            sd.update(fe_state_dict(params[subtree], stats.get(subtree, {}),
-                                    prefix))
+            sd.update(fe_state_dict(
+                params[subtree], None if stats is None else stats[subtree],
+                prefix))
         elif kind == "feat":
             sd.update(feat_state_dict(params[subtree], prefix))
         elif kind == "clin":

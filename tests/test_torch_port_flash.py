@@ -117,9 +117,15 @@ def test_kernel_input_checks(bad):
 
 
 def test_kernel_refuses_grad_and_non_contiguous():
-    q = torch.zeros(1, 2, 8, 64, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        port._check_kernel_inputs(q, q.detach(), q.detach())
+    """Non-contiguous inputs are refused. A grad is no longer refused: it
+    flows through the FlashAttention Function (its backward is the flash
+    backward, tests/test_torch_port_flash_bwd.py)."""
+    q = torch.randn(1, 2, 8, 64, requires_grad=True)
+    port._check_kernel_inputs(q, q.detach(), q.detach())
+    out, _ = port.flash_attention(q, q.detach(), q.detach(), 0.1)
+    assert type(out.grad_fn).__name__ == "FlashAttentionBackward"
+    out.sum().backward()
+    assert q.grad is not None and torch.isfinite(q.grad).all()
     t = torch.zeros(1, 8, 2, 64).transpose(1, 2)
     with pytest.raises(ValueError, match="contiguous"):
         port._check_kernel_inputs(t, t, t)

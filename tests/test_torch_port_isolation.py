@@ -2,6 +2,7 @@
 its entry points refuse to fall back to the CPU unless asked."""
 
 import hashlib
+import pkgutil
 import subprocess
 import sys
 from pathlib import Path
@@ -9,24 +10,28 @@ from pathlib import Path
 import pytest
 import torch
 
+import oaprogressionmmf_torch
 from oaprogressionmmf_torch import resolve_device
 from oaprogressionmmf_torch.ops import _build
 from oaprogressionmmf_torch.serving import make_predictor
+from oaprogressionmmf_torch.train.trainer import TrainRuntime
 from torch_port_util import FLAGSHIP_MODALS, FLAGSHIP_SMALL
 
 REPO = Path(__file__).resolve().parents[1]
-PORT_MODULES = [
-    "oaprogressionmmf_torch", "oaprogressionmmf_torch.device",
-    "oaprogressionmmf_torch.ops", "oaprogressionmmf_torch.ops._build",
-    "oaprogressionmmf_torch.ops.flash_attention",
-    "oaprogressionmmf_torch.ops.preproc", "oaprogressionmmf_torch.ops.resize",
-    "oaprogressionmmf_torch.models", "oaprogressionmmf_torch.models.feat",
-    "oaprogressionmmf_torch.models.resnet",
-    "oaprogressionmmf_torch.models.families",
-    "oaprogressionmmf_torch.train", "oaprogressionmmf_torch.train.trainer",
-    "oaprogressionmmf_torch.serving", "oaprogressionmmf_torch.utils",
-    "oaprogressionmmf_torch.utils.convert",
-]
+# every module of the package, found by walking it, so that a new module
+# is held to the rule too
+PORT_MODULES = ["oaprogressionmmf_torch"] + sorted(
+    m.name for m in pkgutil.walk_packages(oaprogressionmmf_torch.__path__,
+                                          "oaprogressionmmf_torch."))
+
+
+def test_the_module_walk_finds_the_whole_package():
+    on_disk = {
+        ".".join(path.relative_to(REPO).with_suffix("").parts)
+        .removesuffix(".__init__")
+        for path in (REPO / "oaprogressionmmf_torch").rglob("*.py")}
+    assert set(PORT_MODULES) == on_disk
+    assert "oaprogressionmmf_torch.train.state" in PORT_MODULES
 
 
 def test_port_imports_without_jax_or_the_jax_package():
@@ -64,6 +69,10 @@ def test_entry_points_raise_without_a_gpu_unless_cpu_is_asked(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         make_predictor(FLAGSHIP_SMALL, {}, FLAGSHIP_MODALS,
                        FLAGSHIP_SMALL["downscale"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TrainRuntime({"model": FLAGSHIP_SMALL, "training": {}},
+                     FLAGSHIP_MODALS, FLAGSHIP_SMALL["downscale"], 1,
+                     device=None)
     assert resolve_device("cpu") == torch.device("cpu")
 
 

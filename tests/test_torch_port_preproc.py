@@ -72,5 +72,18 @@ def test_eval_preprocess_matches_jax(downscale):
 
 
 def test_train_preprocess_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="item 5"):
-        make_preprocess_fn(["xr_pa"], None, train=True)
+    """The train branch is ported (tests/test_torch_port_augment.py holds
+    it against JAX). With draws that switch rotation and gamma off it is
+    the eval preprocessing: unit range and normalization per sample."""
+    from oaprogressionmmf_torch.ops.preproc import AugmentDraws
+    rng = np.random.RandomState(2)
+    xs = (rng.randint(0, 256, (3, 1, 31, 33), np.uint8),
+          rng.rand(3, 1, 9).astype(np.float32))
+    off = AugmentDraws(*(torch.ones(3) for _ in range(4)))
+    modals = ["xr_pa", "clin"]
+    got = make_preprocess_fn(modals, None, train=True)(
+        tuple(torch.from_numpy(x) for x in xs), [off, None])
+    want = make_preprocess_fn(modals, None, train=False)(
+        tuple(torch.from_numpy(x) for x in xs))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), atol=1e-6)
