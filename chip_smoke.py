@@ -12,16 +12,34 @@ Phases (any failure exits non-zero; nothing is caught):
      without TF32 and in bfloat16; times of the kernel, the plain version
      and the one PyTorch call computing the same function (library_ms, a
      yardstick the port never calls), beside the least time the card
-     could take (bound_ms);
+     could take (bound_ms); K1 also at head widths 48 and 276 (DenseNet-161
+     FeaTs), which it pads;
+ 3c. the fused stem kernel K4 (BatchNorm(eval) + ReLU + 3x3/2 max pool)
+     against its plain version at the flagship's three stems, the JAX
+     script's design point (4096 slices of 160²) and a 96-channel DenseNet
+     stem, in float32 (no TF32) and bf16; a NaN planted in its input comes
+     out; bf16 against the unfused F.batch_norm → relu → max_pool2d; times
+     of the kernel, the plain version and the unfused three library calls
+     (no single PyTorch call computes this function) beside the bound;
   4. the flagship XR1MR2C1CnnTrf inference slice at the full width of
      bench.py's config: random weights from bench_param_spec.json (seeded,
      bench.py's recipe), carried across with from_jax_variables and loaded
      with strict=True; a few requests of raw batch-4 inputs through
      make_predictor in bfloat16 with every launch count set to 0 just
-     before and read just after; probabilities checked; the bf16 run's
-     tokens into the final FeaT, its states and its logits compared with a
-     float32 (no TF32) run of the port on the same inputs, beside how far
-     knees and slices differ in the same quantities;
+     before and read just after (12 K1 and 3 K4 launches per request);
+     probabilities checked; the bf16 run's tokens into the final FeaT, its
+     states and its logits compared with a float32 (no TF32) run of the
+     port on the same inputs, beside how far knees and slices differ in the
+     same quantities; one float32 MRI ResNet50 through K4 against its own
+     children run unfused;
+ 4b. the five other families at the full width of their YAML configs
+     (XR 700² → ResNeXt50-32x4d at 350², or ResNet50 for XR1Cnn; DESS
+     320²×128 → 64 slices of 160²; COR IW TSE 320²×32 → 32 slices) with
+     random weights from a seeded host recipe, loaded with strict=True
+     through make_predictor: batch-4 requests in bf16 with their exact K4
+     and K1 launch counts, and logits and probabilities against a float32
+     run; then MR1CnnTrf with each extra encoder (squeezenet1_0, vgg16,
+     densenet161, inception_v3) as its fe.arch at batch 2;
  3b. the flash backward kernels K2 (dq) and K3 (dk, dv) against their
      plain PyTorch versions on the same inputs and the same (O, lse) from
      K1, at the training step's shapes (B, H) = (8, 8), D = 256, N in
@@ -34,7 +52,8 @@ Phases (any failure exits non-zero; nothing is caught):
      inputs, focal loss, Adam with coupled weight decay under the warmup
      schedule; warm-up steps, then timed steps with every launch count set
      to 0 just before and read just after (12 launches of each of K1, K2
-     and K3 per step); losses finite, every parameter and BN running
+     and K3 per step, none of K4: train mode keeps the unfused stem);
+     losses finite, every parameter and BN running
      statistic moved and finite; ms per step, knees/s, peak memory and a
      profiler breakdown of one step;
  5b. one float32 (no TF32, deterministic cuDNN) step at batch 2 without
@@ -126,6 +145,43 @@ BWD_BH = (8, 8)
 # rounding (2^-8 of a value), so 2e-2 of the largest grad is ample
 BWD_TOL = {torch.float32: {"abs": 5e-4, "rel": None},
            torch.bfloat16: {"abs": 4e-2, "rel": 2e-2}}
+
+# K4, the fused stem: conv outputs (N, C, H, W) of the flagship's three
+# stems at batch 4, the JAX script's design point and a DenseNet-161 stem
+STEM_SHAPES = (
+    ("xr", (BATCH, 64, 175, 175)),            # X-ray 350² → 175²
+    ("dess", (BATCH * 64, 64, 80, 80)),       # 64 DESS slices of 160²
+    ("t2", (BATCH * 25, 64, 80, 80)),         # 25 T2 slices of 160²
+    ("design", (4096, 64, 80, 80)),           # scripts/exp_fused_stem.py
+    ("densenet", (BATCH * 64, 96, 80, 80)),   # DenseNet-161 on DESS
+)
+FLAGSHIP_STEMS = ("xr", "dess", "t2")
+# K4 against its plain version: float32 within 1e-6 of max|out|, bf16
+# within one bf16 ulp of each value (the two round every operation alike,
+# so both should be 0); against the unfused bf16 batch_norm → relu →
+# max_pool2d, which applies the affine in bf16, within 1e-2 of max|out|
+# (scripts/exp_fused_stem.py:69-73)
+STEM_F32_RTOL = 1e-6
+STEM_UNFUSED_RTOL = 1e-2
+# one float32 MRI ResNet50 through K4 against its children run unfused
+FE_RTOL = 5e-4
+
+# phase 4b: the other five families at their YAML configs' full width
+FAMILY_SIZES = {"xr": ([700, 700], [0.5, 0.5]),
+                "dess": ([320, 320, 128], [0.5, 0.5, 0.5]),
+                "tse": ([320, 320, 32], [0.5, 0.5, 1.0])}
+FAMILY_MODALS = {"xr": "xr_pa", "dess": "sag_3d_dess", "tse": "cor_iw_tse"}
+# family → (branches, K4 and K1 launches per request)
+FAMILIES = {
+    "XR1Cnn": (("xr",), 1, 0),
+    "MR1CnnTrf": (("dess",), 1, 4),
+    "MR2CnnTrf": (("dess", "tse"), 2, 4),
+    "XR1MR1CnnTrf": (("xr", "dess"), 2, 4),
+    "XR1MR2CnnTrf": (("xr", "dess", "tse"), 3, 12),
+}
+ENCODERS = ("squeezenet1_0", "vgg16", "densenet161", "inception_v3")
+FAMILY_REQUESTS = 3
+ENCODER_BATCH = 2
 
 # the training step: prog_fus.yaml's training config
 TRAIN_BATCH = 8
@@ -267,8 +323,9 @@ def phase_flash():
         return tuple(torch.randn(b, h, n, d, device=dev,
                                  generator=gen).to(dtype) for _ in range(3))
 
-    # the other head widths the kernel takes, for correctness only
-    for d in (32, 64, 128):
+    # the other head widths the kernel takes, for correctness only: 48 and
+    # 276 (a DenseNet-161 FeaT's 2208 / 8) run padded to 64 and 288
+    for d in (32, 48, 64, 128, 276):
         for dtype in (torch.float32, torch.bfloat16):
             for n in (92, 130):
                 check_flash(*qkv(n, d, dtype), d ** -0.5)
@@ -462,6 +519,148 @@ def phase_flash_bwd() -> dict:
     return records
 
 
+def stem_module():
+    """The fused-stem module (K4)."""
+    return importlib.import_module("oaprogressionmmf_torch.ops.fused_stem")
+
+
+def stem_inputs(shape, dtype, gen):
+    """A channels_last (N, C, H, W) conv output and BatchNorm weight,
+    bias, running mean and variance in ``dtype`` (a bf16 model holds its
+    BatchNorm in bf16)."""
+    n, c, h, w = shape
+    dev = torch.device("cuda")
+    y = torch.randn(n, h, w, c, device=dev, generator=gen).to(dtype)
+    params = (torch.rand(c, device=dev, generator=gen) + 0.5,
+              torch.randn(c, device=dev, generator=gen) * 0.3,
+              torch.randn(c, device=dev, generator=gen) * 0.3,
+              torch.rand(c, device=dev, generator=gen) + 0.5)
+    return y.permute(0, 3, 1, 2), tuple(p.to(dtype) for p in params)
+
+
+def unfused_stem(y, weight, bias, mean, var):
+    """The eager stem: three library calls."""
+    z = F.batch_norm(y, mean, var, weight, bias, False, 0.0, 1e-5)
+    return F.max_pool2d(F.relu(z), 3, 2, 1)
+
+
+def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """Spacing of bf16 values at |x| (8 significant bits), in float32."""
+    mag = x.float().abs().clamp_min(torch.finfo(torch.float32).tiny)
+    return torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+def check_stem(name: str, y, params) -> float:
+    """K4 against its plain version (and, in bf16, the unfused stem) on the
+    same card and inputs; returns max|Δ| and exits outside a bar."""
+    fs = stem_module()
+    out = fs.fused_bn_relu_pool(y, *params)
+    want = fs.bn_relu_pool_plain(y, *params)
+    torch.cuda.synchronize()
+    diff = (out.float() - want.float()).abs()
+    err = diff.max().item()
+    peak = want.float().abs().max().item()
+    if y.dtype == torch.float32:
+        bar = f"{STEM_F32_RTOL * peak:.3e}"
+        ok = err <= STEM_F32_RTOL * peak
+    else:
+        bar = "one bf16 ulp"
+        ok = bool((diff <= bf16_ulp(want)).all())
+    del diff
+    ok = ok and out.shape == want.shape and out.is_contiguous(
+        memory_format=torch.channels_last)
+    line = (f"[stem] {str(y.dtype)[6:]:8s} {name:8s} (N,C,H,W)="
+            f"{tuple(y.shape)} -> {tuple(out.shape)} max|d|={err:.3e} "
+            f"(bar {bar}, max|out| {peak:.3e})")
+    if y.dtype == torch.bfloat16:
+        err_u = (out.float() - unfused_stem(y, *params).float()) \
+            .abs().max().item()
+        ok = ok and err_u <= STEM_UNFUSED_RTOL * peak
+        line += (f"; unfused bf16 stem max|d|={err_u:.3e} (bar "
+                 f"{STEM_UNFUSED_RTOL * peak:.3e})")
+    log(f"{line} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"the fused stem kernel disagrees at {name}")
+    return err
+
+
+def check_stem_nan(y, params) -> None:
+    """A NaN in the window gives NaN, as the plain version's relu and
+    max_pool2d propagate it: one inside the map, one in a corner."""
+    fs = stem_module()
+    y = y.clone()
+    y[0, 5, 21, 33] = float("nan")   # output rows 10-11, cols 16-17
+    y[1, 3, 0, 0] = float("nan")     # output (0, 0)
+    out = fs.fused_bn_relu_pool(y, *params)
+    want = fs.bn_relu_pool_plain(y, *params)
+    nan = torch.isnan(out)
+    n_nan = int(nan.sum().item())
+    same_nan = torch.equal(nan, torch.isnan(want))
+    got, want = out[~nan].float(), want[~nan].float()
+    if y.dtype == torch.float32:
+        close = (got - want).abs().max() <= STEM_F32_RTOL * want.abs().max()
+    else:
+        close = ((got - want).abs() <= bf16_ulp(want)).all()
+    ok = n_nan == 5 and same_nan and bool(close)
+    log(f"[stem] {str(y.dtype)[6:]:8s} NaN planted at 2 inputs: {n_nan} NaN "
+        f"outputs (expected 5, where the plain version has them) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the fused stem kernel does not propagate NaN")
+
+
+def stem_bound_ms(y, c: int, dtype) -> tuple[float, str]:
+    """Least time for one call: y and the four (C,) arrays read once, the
+    pooled map written once; a multiply, an add and a ReLU per input value
+    and eight maxima per output, float32 on the CUDA cores."""
+    n, _, h, w = y.shape
+    elt = torch.tensor([], dtype=dtype).element_size()
+    n_out = n * c * ((h - 1) // 2 + 1) * ((w - 1) // 2 + 1)
+    nbytes = (y.numel() + n_out + 4 * c) * elt
+    return roofline_ms(nbytes, 3 * y.numel() + 8 * n_out, torch.float32)
+
+
+def phase_stem() -> dict:
+    fs = stem_module()
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    record = {"ms": 0.0, "plain_ms": 0.0, "unfused_ms": 0.0,
+              "bound_ms": 0.0, "max_abs_err": 0.0, "per_shape": []}
+    parts = {"bytes": 0.0, "operations": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, shape in STEM_SHAPES:
+            y, params = stem_inputs(shape, dtype, gen)
+            record["max_abs_err"] = max(record["max_abs_err"],
+                                        check_stem(name, y, params))
+            if name == "dess":
+                check_stem_nan(y, params)
+            if dtype == torch.bfloat16:
+                iters = 5 if name == "design" else 50
+                t_k, t_p, t_u = (time_ms(fn, iters) for fn in (
+                    lambda: fs.fused_bn_relu_pool(y, *params),
+                    lambda: fs.bn_relu_pool_plain(y, *params),
+                    lambda: unfused_stem(y, *params)))
+                bound, by = stem_bound_ms(y, shape[1], dtype)
+                log(f"[stem] bf16 {name:8s} (N,C,H,W)={shape} device: "
+                    f"kernel {t_k:.4f} ms  plain {t_p:.4f} ms  unfused (3 "
+                    f"library calls) {t_u:.4f} ms  bound {bound:.5f} ms "
+                    f"({by})")
+                record["per_shape"].append(dict(
+                    name=name, shape=list(shape), ms=t_k, plain_ms=t_p,
+                    unfused_ms=t_u, bound_ms=bound, bound_by=by))
+                if name in FLAGSHIP_STEMS:
+                    for key, t in (("ms", t_k), ("plain_ms", t_p),
+                                   ("unfused_ms", t_u), ("bound_ms", bound)):
+                        record[key] += t
+                    parts[by] += bound
+            del y, params
+            torch.cuda.empty_cache()
+    record["bound_by"] = max(parts, key=parts.get)
+    log(f"[stem] per flagship request (3 launches, bf16): kernel "
+        f"{record['ms']:.4f} ms, plain {record['plain_ms']:.4f} ms, unfused "
+        f"{record['unfused_ms']:.4f} ms, bound {record['bound_ms']:.5f} ms")
+    return record
+
+
 def synth_state_dict():
     """bench.py's parameter recipe over bench_param_spec.json (params and
     batch_stats; the int8 quant_acts are not part of the bf16 path)."""
@@ -590,6 +789,7 @@ def compare_dtypes(got: dict, want: dict, segments: dict) -> None:
 # kernel-name substrings → category of the device-time breakdown (first
 # match wins)
 KERNEL_CATEGORIES = (
+    ("fused stem (bn_relu_pool)", ("bn_relu_pool",)),
     ("attention backward (flash_bwd)", ("flash_bwd_dq_kernel",
                                         "flash_bwd_dkv_kernel")),
     ("attention (flash_fwd)", ("flash_fwd",)),
@@ -661,19 +861,24 @@ def phase_slice(card: str, sd: dict):
     torch.cuda.reset_peak_memory_stats()
 
     flash_attention.launches = 0
+    stem_module().fused_bn_relu_pool.launches = 0
     latencies = []
     for _ in range(REQUESTS):
         t = time.perf_counter()
         probs = predictor(xs).cpu()
         latencies.append(time.perf_counter() - t)
     launches = flash_attention.launches
+    stem_launches = stem_module().fused_bn_relu_pool.launches
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     log(f"[slice] {REQUESTS} requests of batch {BATCH}: flash launches "
-        f"{launches} ({launches / REQUESTS:g} per forward)")
-    if launches != 12 * REQUESTS:
-        raise SystemExit(f"expected 12 flash launches per forward, got "
-                         f"{launches} over {REQUESTS}")
+        f"{launches} ({launches / REQUESTS:g} per forward), fused stem "
+        f"launches {stem_launches} ({stem_launches / REQUESTS:g} per "
+        f"forward)")
+    if launches != 12 * REQUESTS or stem_launches != 3 * REQUESTS:
+        raise SystemExit(f"expected 12 flash and 3 fused stem launches per "
+                         f"forward, got {launches} and {stem_launches} over "
+                         f"{REQUESTS}")
     if probs.shape != (BATCH, 2) or not torch.isfinite(probs).all():
         raise SystemExit(f"bad probabilities {probs}")
     if (probs.sum(-1) - 1).abs().max().item() > 1e-5:
@@ -699,7 +904,172 @@ def phase_slice(card: str, sd: dict):
     log("[slice] bf16 against a float32 (no TF32) run of the same weights "
         "and inputs:")
     compare_dtypes(got, capture(predictor32, xs), segments)
-    return launches
+    check_fe_stem(predictor32.model._fe1)
+    return launches, stem_launches
+
+
+def check_fe_stem(fe) -> None:
+    """One float32 MRI ResNet50 in eval mode through K4 against the same
+    module's children run unfused (conv1 → bn1 → relu → maxpool →
+    layer1..4), on 16 slices of 160² and with bn1 given random statistics."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    bn1 = fe[1]
+    with torch.no_grad():
+        for t in (bn1.weight, bn1.running_var):
+            t.copy_(torch.rand(t.shape, device=t.device, generator=gen) + 0.5)
+        for t in (bn1.bias, bn1.running_mean):
+            t.copy_(torch.randn(t.shape, device=t.device, generator=gen) * 0.3)
+    x = torch.randn(16, 1, 160, 160, device="cuda", generator=gen)
+    fs = stem_module()
+    with torch.inference_mode():
+        before = fs.fused_bn_relu_pool.launches
+        got = fe(x)
+        fused = fs.fused_bn_relu_pool.launches - before
+        want = x
+        for layer in fe:
+            want = layer(want)
+        want = want.mean(dim=(2, 3))
+    err = (got - want).abs().max().item()
+    peak = want.abs().max().item()
+    ok = fused == 1 and err <= FE_RTOL * peak
+    log(f"[slice] float32 ResNet50 FE, eval: through K4 ({fused} launch) "
+        f"against its children unfused: max|d| {err:.3e} (bar "
+        f"{FE_RTOL * peak:.3e}, max|out| {peak:.3e}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the FE through the fused stem disagrees with the "
+                         "unfused FE")
+
+
+def family_cfg(name: str, mr_arch: str = "resnet50") -> dict:
+    """The family's YAML config (run/conf/model/*.yaml) at full width:
+    ResNeXt50-32x4d for the X-ray of the fusion families, ResNet50 for
+    XR1Cnn's X-ray and every MRI branch (or ``mr_arch``)."""
+    branches = FAMILIES[name][0]
+    agg = {"depth": 4, "heads": 8, "emb_dropout": 0.1, "mlp_dim": 2048,
+           "mlp_dropout": 0.1}
+    fe = {"pretrained": False, "with_gap": True, "dropout": 0.0}
+    if name == "XR1Cnn":
+        fe_cfg, agg = dict(fe, arch="resnet50"), {"hidden_size": 512,
+                                                  "dropout": 0.5}
+    elif name.startswith("XR"):
+        fe_cfg = {"xr": dict(fe, arch="resnext50_32x4d"),
+                  "mr": dict(fe, arch=mr_arch)}
+        agg["num_slices"] = [1, 64, 32][:len(branches)]
+    else:
+        fe_cfg = dict(fe, arch=mr_arch, dims_view="rc")
+        agg["num_slices"] = [64, 32] if name == "MR2CnnTrf" else None
+    return {"name": name, "input_channels": 1, "output_channels": 2,
+            "output_type": "dict", "debug": False, "restore_weights": False,
+            "input_size": [FAMILY_SIZES[b][0] for b in branches],
+            "downscale": [FAMILY_SIZES[b][1] for b in branches],
+            "fe": fe_cfg, "agg": agg}
+
+
+def synth_family_state_dict(cfg: dict) -> dict:
+    """Random weights for any family by the recipe of synth_state_dict, on
+    the port's own parameter shapes (seeded on the host): norm scales and
+    variances 1, biases and means 0, weights normal with std 1/√fan_in
+    (fan_in the input width of a conv or linear layer, the leading extents
+    of a CLS token or positional embedding, as in the JAX layout)."""
+    from oaprogressionmmf_torch.models import dict_models
+    with torch.device("meta"):
+        model = dict_models[cfg["name"]](cfg)
+    rng = np.random.default_rng(1234)
+    sd = {}
+    for key, t in model.state_dict().items():
+        shape, leaf = tuple(t.shape), key.rsplit(".", 1)[-1]
+        if leaf == "num_batches_tracked":
+            sd[key] = torch.tensor(0)
+            continue
+        if leaf == "running_var" or (leaf == "weight" and len(shape) == 1):
+            arr = np.ones(shape, np.float32)
+        elif leaf in ("bias", "running_mean"):
+            arr = np.zeros(shape, np.float32)
+        else:
+            fan_in = int(np.prod(shape[:-1] if leaf in ("cls_token",
+                                                       "pos_embedding")
+                                 else shape[1:]))
+            arr = rng.standard_normal(shape, dtype=np.float32)
+            arr *= np.float32(1.0 / np.sqrt(max(fan_in, 1)))
+        sd[key] = torch.from_numpy(arr)
+    return sd
+
+
+def family_inputs(cfg: dict, batch: int) -> tuple:
+    """Raw uint8 X-rays and MRI volumes at the config's input sizes; each
+    knee and MRI slice scaled by its own amplitude, as raw_inputs does."""
+    rng = np.random.default_rng(5)
+    xs = []
+    for size in cfg["input_size"]:
+        x = rng.integers(0, 256, (batch, 1, *size), dtype=np.uint8)
+        amp = rng.uniform(0.1, 1.0, (batch, 1) + (1,) * (len(size) - 1)
+                          + ((size[-1],) if len(size) == 3 else (1,)))
+        amp = amp.astype(np.float32)
+        xs.append((x * amp).astype(np.uint8))
+    return tuple(xs)
+
+
+def run_family(card: str, cfg: dict, modals, batch: int, requests: int,
+               want_k4: int, want_k1: int, label: str) -> float:
+    """Serve ``cfg`` in bf16: ``requests`` timed requests with exact launch
+    counts, then its logits and probabilities against a float32 run of
+    the same weights and inputs; returns the mean request ms."""
+    from oaprogressionmmf_torch.serving import make_predictor
+    sd = synth_family_state_dict(cfg)
+    xs = family_inputs(cfg, batch)
+    predictor = make_predictor(cfg, sd, modals, cfg["downscale"],
+                               dtype=torch.bfloat16)
+    predictor(xs).cpu()                       # warm-up
+    reset_launch_counts()
+    latencies = []
+    for _ in range(requests):
+        t = time.perf_counter()
+        probs = predictor(xs).cpu()
+        latencies.append(time.perf_counter() - t)
+    k4 = stem_module().fused_bn_relu_pool.launches
+    k1 = flash_module().flash_attention.launches
+    logits16 = predictor.logits(xs)
+    del predictor
+    torch.cuda.empty_cache()
+    logits32 = make_predictor(cfg, sd, modals, cfg["downscale"],
+                              dtype=torch.float32).logits(xs)
+    torch.cuda.empty_cache()
+    d_logit = (logits16 - logits32).abs().max().item()
+    scale = max(1.0, logits32.abs().max().item())
+    d_prob = (torch.softmax(logits16, -1)
+              - torch.softmax(logits32, -1)).abs().max().item()
+    lat = float(np.mean(latencies) * 1e3)
+    ok = (k4 == want_k4 * requests and k1 == want_k1 * requests
+          and probs.shape == (batch, 2) and bool(torch.isfinite(probs).all())
+          and d_logit <= LOGIT_RTOL * scale and d_prob <= PROB_ATOL)
+    log(f"[family] {label}: batch {batch}, {requests} requests, mean "
+        f"{lat:.2f} ms per request (min {min(latencies) * 1e3:.2f}) "
+        f"[{card}]; launches per request K4 {k4 / requests:g} (want "
+        f"{want_k4}), K1 {k1 / requests:g} (want {want_k1}); bf16 against "
+        f"float32: max|dlogit| {d_logit:.3e} (tol {LOGIT_RTOL}·{scale:.3f}), "
+        f"max|dprob| {d_prob:.3e} (tol {PROB_ATOL}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"{label} failed its launch counts or its bf16 "
+                         f"against float32 check")
+    return lat
+
+
+def phase_families(card: str) -> dict:
+    """Phase 4b: the five other families at full width, then MR1CnnTrf
+    with each extra encoder."""
+    ms = {}
+    for name, (branches, k4, k1) in FAMILIES.items():
+        modals = [FAMILY_MODALS[b] for b in branches]
+        ms[name] = run_family(card, family_cfg(name), modals, BATCH,
+                              FAMILY_REQUESTS, k4, k1, name)
+    for arch in ENCODERS:
+        label = f"MR1CnnTrf[{arch}]"
+        ms[label] = run_family(
+            card, family_cfg("MR1CnnTrf", mr_arch=arch), ["sag_3d_dess"],
+            ENCODER_BATCH, 1, int(arch == "densenet161"), 4, label)
+    return ms
 
 
 def launch_counts() -> tuple:
@@ -713,6 +1083,7 @@ def reset_launch_counts() -> None:
     fa.flash_attention.launches = 0
     fa.flash_attention_bwd.launches_dq = 0
     fa.flash_attention_bwd.launches_dkv = 0
+    stem_module().fused_bn_relu_pool.launches = 0
 
 
 def train_runtime(sd: dict, model_cfg: dict, dtype):
@@ -750,14 +1121,17 @@ def phase_train(card: str, sd: dict) -> tuple:
         losses.append(loss.item())
         latencies.append(time.perf_counter() - t)
     counts = launch_counts()
+    stem_launches = stem_module().fused_bn_relu_pool.launches
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     log(f"[train] {TRAIN_STEPS} steps of batch {TRAIN_BATCH}: launches K1 "
         f"{counts[0]}, K2 {counts[1]}, K3 {counts[2]} (per step "
-        f"{[c / TRAIN_STEPS for c in counts]}); losses {losses}")
-    if counts != (12 * TRAIN_STEPS,) * 3:
-        raise SystemExit(f"expected 12 launches of each of K1, K2 and K3 per "
-                         f"step, got {counts} over {TRAIN_STEPS}")
+        f"{[c / TRAIN_STEPS for c in counts]}), K4 {stem_launches}; losses "
+        f"{losses}")
+    if counts != (12 * TRAIN_STEPS,) * 3 or stem_launches != 0:
+        raise SystemExit(f"expected 12 launches of each of K1, K2 and K3 and "
+                         f"none of K4 per step, got {counts} and "
+                         f"{stem_launches} over {TRAIN_STEPS}")
     if not all(np.isfinite(losses)) or logits.shape != (TRAIN_BATCH, 2) \
             or not torch.isfinite(logits).all():
         raise SystemExit(f"non-finite loss or bad logits: {losses}")
@@ -861,6 +1235,7 @@ def main() -> int:
     phase_build()
     flash = phase_flash()
     bwd = phase_flash_bwd()
+    stem = phase_stem()
 
     t0 = time.perf_counter()
     sd = synth_state_dict()
@@ -868,8 +1243,11 @@ def main() -> int:
                    if not k.endswith("num_batches_tracked"))
     log(f"[slice] synthesized {n_params} parameters + BN statistics in "
         f"{time.perf_counter() - t0:.1f} s")
-    launches = phase_slice(card, sd)
+    launches, stem_launches = phase_slice(card, sd)
     gc.collect()                 # the inference predictors are freed
+    torch.cuda.empty_cache()
+    family_ms = phase_families(card)
+    gc.collect()
     torch.cuda.empty_cache()
     train_counts = phase_train(card, sd)
     gc.collect()
@@ -896,6 +1274,18 @@ def main() -> int:
             bound_by=rec["bound_by"], library_ms=rec["library_ms"],
             library_computes="dq, dk and dv (the whole SDPA backward)",
             per_n=rec["per_n"]))
+    kernels.append(dict(
+        name="bn_relu_pool", route="cuda", source=src + "bn_pool.cu",
+        replaces="oaprogressionmmf_tpu/ops/fused_stem.py:34",
+        launches=stem_launches, launches_per_request=stem_launches / REQUESTS,
+        launches_train=0, max_abs_err=stem["max_abs_err"], ms=stem["ms"],
+        plain_ms=stem["plain_ms"], unfused_ms=stem["unfused_ms"],
+        unfused_computes="F.batch_norm (eval), F.relu, F.max_pool2d: three "
+                         "library calls; no single PyTorch call computes "
+                         "this function",
+        bound_ms=stem["bound_ms"], bound_by=stem["bound_by"],
+        library_ms=None, per_shape=stem["per_shape"]))
+    log(f"[family] ms per request: {json.dumps(family_ms)}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -7,16 +7,24 @@ pool, four stages, grouped 3x3 convs for ResNeXt (32 groups of width 4).
 Each extractor is ``nn.Sequential(conv1, bn1, relu, maxpool, layer1..4)``:
 the reference's ``nn.Sequential(*list(resnet.children())[:-1])`` without
 its parameter-free avgpool, so state dict keys are the reference's
-(``0.weight``, ``4.0.conv1.weight``, ...).
+(``0.weight``, ``4.0.conv1.weight``, ...). In eval mode, where no gradient
+flows through the stem, ``bn1 → relu → maxpool`` runs as one fused kernel
+(``ops/fused_stem.py::stem_epilogue``); train mode and autograd keep the
+three modules.
 ResNeXt's grouped convs run as native ``groups=32`` convs; the TPU's
 block-diagonal dense form and its ``dense_groups`` / ``s2d_stem`` /
 ``remat`` knobs have no counterpart here.
+
+The registry (``FE_ARCHS``, ``FE_OUT_CHANNELS``, ``FE_STRIDE32``) also holds
+the encoders of ``models/encoders.py``, as the JAX package's does.
 """
 
 from __future__ import annotations
 
-import torch.nn.functional as F
 from torch import nn
+
+from ..ops.fused_stem import stem_epilogue
+from .encoders import EXTRA_FE_ARCHS, EXTRA_FE_OUT_CHANNELS, RGBStemConv
 
 
 def _bn(c: int) -> nn.BatchNorm2d:
@@ -76,22 +84,11 @@ class Bottleneck(nn.Module):
         return self.relu(y + residual)
 
 
-class StemConv(nn.Conv2d):
-    """7x7/2 RGB stem that takes grayscale input directly: for one input
-    channel the kernel is summed over its three input channels, which
-    equals repeating the image three times without materializing it."""
+class StemConv(RGBStemConv):
+    """The 7x7/2 RGB stem (padding 3, no bias); takes grayscale input."""
 
     def __init__(self, features: int = 64):
-        super().__init__(3, features, 7, 2, 3, bias=False)
-
-    def forward(self, x):
-        w = self.weight
-        if x.shape[1] == 1:
-            w = w.sum(dim=1, keepdim=True)
-        elif x.shape[1] != 3:
-            raise ValueError(f"Stem expects 1 or 3 channels, got "
-                             f"{tuple(x.shape)}")
-        return F.conv2d(x, w, None, self.stride, self.padding)
+        super().__init__(features, 7, stride=2, padding=3, bias=False)
 
 
 class ResNetFE(nn.Sequential):
@@ -116,7 +113,10 @@ class ResNetFE(nn.Sequential):
         self.with_gap = with_gap
 
     def forward(self, x):
-        x = super().forward(x)
+        conv1, bn1, relu, maxpool, *stages = self
+        x = stem_epilogue(conv1(x), bn1, relu, maxpool)
+        for stage in stages:
+            x = stage(x)
         return x.mean(dim=(2, 3)) if self.with_gap else x
 
 
@@ -148,6 +148,11 @@ FE_OUT_CHANNELS = {
     "resnext50_32x4d": 2048,
 }
 
-# archs whose feature maps are exactly stride-32 over the input (every
-# halving rounds up), which the static spatial-shape oracle assumes
-FE_STRIDE32 = {"resnet18", "resnet34", "resnet50", "resnext50_32x4d"}
+FE_ARCHS.update(EXTRA_FE_ARCHS)
+FE_OUT_CHANNELS.update(EXTRA_FE_OUT_CHANNELS)
+
+# archs whose feature maps are stride-32 over the input, the only ones the
+# static spatial-shape oracle (families._fe_spatial) sizes; squeezenet1_0
+# and inception_v3 (valid convs, ceil pools) need with_gap=true
+FE_STRIDE32 = {"resnet18", "resnet34", "resnet50", "resnext50_32x4d",
+               "vgg16", "densenet161"}

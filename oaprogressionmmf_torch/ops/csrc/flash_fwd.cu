@@ -20,6 +20,13 @@
 // visited in 32-key tiles by a loop inside the block (the TPU's sequential
 // grid axis); K and V tiles are staged in shared memory as float32.
 //
+// Any head width d up to 288 runs (the TPU kernel pads D to 128 lanes).
+// The widths 32, 64, 128 and 256 have kernels of their own; any other
+// runs in the kernel of the next width of 32, 64, 128, 256 and 288
+// (kPad), whose columns at or past d are staged as zeros and never stored,
+// so they add exactly zero. DenseNet-161's 2208-wide tokens in 8 heads give
+// d = 276.
+//
 // This first version multiplies on the CUDA cores with float32 FMAs: the
 // float32 path must stay full float32 (no TF32) to meet the 2e-5 parity
 // bar, and bf16 operands are widened to float32 with P rounded to bf16
@@ -77,12 +84,13 @@ constexpr size_t smem_floats() {
 
 // Grid: (B*H, ceil(N / kBlockQ)). Warp w owns query rows
 // q0 + w*kRowsPerWarp ... + kRowsPerWarp - 1; lane j scores key k0 + j and
-// accumulates output columns j, j + 32, ...
-template <typename T, int D>
+// accumulates output columns j, j + 32, ... D is the kernel's head width;
+// with kPad the arrays' own width d is less than D.
+template <typename T, int D, bool kPad>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
-                 float* __restrict__ lse, int n, float scale) {
+                 float* __restrict__ lse, int n, int d, float scale) {
   static_assert(D % 32 == 0, "head width must be a multiple of 32");
   constexpr int kStrideK = D + 1;  // lane j reads K row j: no bank conflicts
   constexpr int kCols = D / 32;
@@ -97,11 +105,15 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = blockIdx.y * kBlockQ;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const size_t base = size_t(bh) * n * D;
+  const int dd = kPad ? d : D;  // the width of the arrays' rows
+  const size_t base = size_t(bh) * n * dd;
 
   for (int i = threadIdx.x; i < kBlockQ * D; i += kThreads) {
     const int r = i / D;
-    qs[i] = (q0 + r < n) ? to_f32(q[base + size_t(q0) * D + i]) : 0.f;
+    const int c = i - r * D;
+    const size_t off = kPad ? size_t(r) * d + c : size_t(i);
+    qs[i] = (q0 + r < n && (!kPad || c < d))
+                ? to_f32(q[base + size_t(q0) * dd + off]) : 0.f;
   }
 
   float acc[kRowsPerWarp][kCols];
@@ -123,8 +135,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = threadIdx.x; i < kBlockK * D; i += kThreads) {
       const int r = i / D;
       const int c = i - r * D;
-      const bool ok = k0 + r < n;
-      const size_t g = base + size_t(k0) * D + i;
+      const bool ok = k0 + r < n && (!kPad || c < d);
+      const size_t g = base + size_t(k0) * dd +
+                       (kPad ? size_t(r) * d + c : size_t(i));
       ks[r * kStrideK + c] = ok ? to_f32(k[g]) : 0.f;
       vs[i] = ok ? to_f32(v[g]) : 0.f;
     }
@@ -180,28 +193,29 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int r = 0; r < kRowsPerWarp; ++r) {
     const int row = q0 + warp * kRowsPerWarp + r;
     if (row >= n) continue;  // padded query rows are not stored
-    T* orow = o + base + size_t(row) * D;
+    T* orow = o + base + size_t(row) * dd;
 #pragma unroll
     for (int c = 0; c < kCols; ++c)
-      orow[lane + 32 * c] = from_f32<T>(acc[r][c] / l[r]);
+      if (!kPad || lane + 32 * c < d)
+        orow[lane + 32 * c] = from_f32<T>(acc[r][c] / l[r]);
     if (lane == 0) lse[size_t(bh) * n + row] = m[r] + logf(l[r]);
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kPad>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   void* lse, int bh, int n, float scale,
+                   void* lse, int bh, int n, int d, float scale,
                    cudaStream_t stream) {
   const size_t smem = smem_floats<D>() * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      int(smem));
+      flash_fwd_kernel<T, D, kPad>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid(bh, (n + kBlockQ - 1) / kBlockQ);
-  flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+  flash_fwd_kernel<T, D, kPad><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o),
-      static_cast<float*>(lse), n, scale);
+      static_cast<float*>(lse), n, d, scale);
   return cudaGetLastError();
 }
 
@@ -210,19 +224,35 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
                      void* lse, int bh, int n, int d, float scale,
                      cudaStream_t stream) {
   switch (d) {
-    case 32: return launch<T, 32>(q, k, v, o, lse, bh, n, scale, stream);
-    case 64: return launch<T, 64>(q, k, v, o, lse, bh, n, scale, stream);
-    case 128: return launch<T, 128>(q, k, v, o, lse, bh, n, scale, stream);
-    case 256: return launch<T, 256>(q, k, v, o, lse, bh, n, scale, stream);
-    default: return cudaErrorInvalidValue;
+    case 32: return launch<T, 32, false>(q, k, v, o, lse, bh, n, d, scale,
+                                         stream);
+    case 64: return launch<T, 64, false>(q, k, v, o, lse, bh, n, d, scale,
+                                         stream);
+    case 128: return launch<T, 128, false>(q, k, v, o, lse, bh, n, d, scale,
+                                           stream);
+    case 256: return launch<T, 256, false>(q, k, v, o, lse, bh, n, d, scale,
+                                           stream);
+    default: break;
   }
+  // any other width: the next kernel width, its columns past d padded
+  if (d <= 0 || d > 288) return cudaErrorInvalidValue;
+  if (d < 32) return launch<T, 32, true>(q, k, v, o, lse, bh, n, d, scale,
+                                         stream);
+  if (d < 64) return launch<T, 64, true>(q, k, v, o, lse, bh, n, d, scale,
+                                         stream);
+  if (d < 128) return launch<T, 128, true>(q, k, v, o, lse, bh, n, d, scale,
+                                           stream);
+  if (d < 256) return launch<T, 256, true>(q, k, v, o, lse, bh, n, d, scale,
+                                           stream);
+  return launch<T, 288, true>(q, k, v, o, lse, bh, n, d, scale, stream);
 }
 
 }  // namespace
 
-// q, k, v, o: contiguous (B*H, N, D) arrays of float32 (is_bf16 = 0) or
-// bfloat16 (is_bf16 = 1); lse: contiguous (B*H, N) float32. Launches on
-// `stream` and returns cudaGetLastError() of the launch (0 on success).
+// q, k, v, o: contiguous (B*H, N, d) arrays, 0 < d <= 288, of float32
+// (is_bf16 = 0) or bfloat16 (is_bf16 = 1); lse: contiguous (B*H, N)
+// float32. Launches on `stream` and returns cudaGetLastError() of the
+// launch (0 on success).
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          void* o, void* lse, int bh, int n, int d,
                          int is_bf16, float scale, void* stream) {

@@ -31,7 +31,10 @@ import torch
 
 from . import _build
 
+# head widths of the backward kernels; the forward takes any width up to
+# FWD_MAX_HEAD_DIM (it pads to the next of 32, 64, 128, 256 and 288)
 HEAD_DIMS = (32, 64, 128, 256)
+FWD_MAX_HEAD_DIM = 288
 DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -117,18 +120,22 @@ def _lib(name: str) -> ctypes.CDLL:
     return lib
 
 
-def _check_kernel_inputs(*ts):
+def _check_kernel_inputs(*ts, forward: bool = False):
     """The kernels take contiguous (B, H, N, D) tensors of one shape, one
-    dtype (float32 or bfloat16), one device and D in HEAD_DIMS."""
+    dtype (float32 or bfloat16) and one device; D in HEAD_DIMS, or for the
+    forward kernel any D up to FWD_MAX_HEAD_DIM."""
     if len({t.shape for t in ts}) != 1 or ts[0].dim() != 4:
         raise ValueError(f"q, k, v must share one (B, H, N, D) shape, got "
                          f"{[tuple(t.shape) for t in ts]}")
     if len({t.dtype for t in ts}) != 1 or ts[0].dtype not in DTYPES:
         raise TypeError(f"flash kernel takes float32 or bfloat16 q/k/v of "
                         f"one dtype, got {[t.dtype for t in ts]}")
-    if ts[0].shape[-1] not in HEAD_DIMS:
-        raise ValueError(f"flash kernel head width must be one of "
-                         f"{HEAD_DIMS}, got {ts[0].shape[-1]}")
+    d = ts[0].shape[-1]
+    if not (0 < d <= FWD_MAX_HEAD_DIM if forward else d in HEAD_DIMS):
+        raise ValueError(
+            f"flash kernel head width must be "
+            f"{f'at most {FWD_MAX_HEAD_DIM}' if forward else HEAD_DIMS}, "
+            f"got {d}")
     if len({t.device for t in ts}) != 1:
         raise ValueError("q, k, v must lie on one device")
     if not all(t.is_contiguous() for t in ts):
@@ -158,7 +165,7 @@ def _launch(kernel: str, t: torch.Tensor, *args) -> None:
 def _flash_fwd(q, k, v, scale):
     if _on_cpu(q, k, v):
         return flash_attention_plain(q, k, v, scale)
-    _check_kernel_inputs(q, k, v)
+    _check_kernel_inputs(q, k, v, forward=True)
     b, h, n, d = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device)

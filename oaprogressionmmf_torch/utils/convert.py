@@ -4,7 +4,9 @@ The JAX package keeps its weights as a ``{"params", "batch_stats"}`` tree
 of arrays; the port's modules carry the reference's torch names. This is
 the port's own copy of the naming logic of the JAX package's
 ``utils/torch_interop.py`` (``flax_fe_to_torch_seq``,
-``flax_feat_to_torch``, ``export_reference_checkpoint``), producing torch
+``flax_feat_to_torch``, ``export_reference_checkpoint``) and of the
+inverses of its ``models/encoders.py`` converters (torchvision names for
+SqueezeNet, VGG16, DenseNet-161 and Inception v3), producing torch
 tensors. All transforms are host-side numpy.
 """
 
@@ -19,12 +21,27 @@ _LAYER_TO_SEQ_IDX = {"layer1": 4, "layer2": 5, "layer3": 6, "layer4": 7}
 
 # family → [(JAX subtree, torch prefix, kind)]
 _FAMILY_LAYOUT = {
+    "XR1Cnn": [("fe", "_fe", "fe"), ("agg_dense", "_agg.1", "dense"),
+               ("final", "_final", "dense")],
+    "MR1CnnTrf": [("fe", "_fe", "fe"), ("agg", "_agg", "feat")],
+    "MR2CnnTrf": [("fe0", "_fe0", "fe"), ("fe1", "_fe1", "fe"),
+                  ("agg", "_agg", "feat")],
+    "XR1MR1CnnTrf": [("fe_xr", "_fe0", "fe"), ("fe_mr1", "_fe1", "fe"),
+                     ("agg", "_agg", "feat")],
+    "XR1MR2CnnTrf": [("fe_xr", "_fe0", "fe"), ("fe_mr1", "_fe1", "fe"),
+                     ("fe_mr2", "_fe2", "fe"),
+                     ("agg_1", "_agg_1", "feat"), ("agg_2", "_agg_2", "feat"),
+                     ("agg_final", "_agg_final", "feat")],
     "XR1MR2C1CnnTrf": [("fe_xr", "_fe0", "fe"), ("fe_mr1", "_fe1", "fe"),
                        ("fe_mr2", "_fe2", "fe"), ("fe_clin", "_fe3", "clin"),
                        ("agg_1", "_agg_1", "feat"),
                        ("agg_2", "_agg_2", "feat"),
                        ("agg_final", "_agg_final", "feat")],
 }
+
+# torchvision `features` indices of the SqueezeNet Fires and VGG16 convs
+_SQUEEZENET_FIRE_IDX = (3, 4, 5, 7, 8, 9, 10, 12)
+_VGG16_CONV_IDX = (0, 2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26, 28)
 
 
 def _t(a) -> torch.Tensor:
@@ -47,7 +64,27 @@ def _join(prefix: str, name: str) -> str:
 
 
 def _sub(tree, name):
-    return None if tree is None else tree[name]
+    """``tree[name]``, or None where the tree or the entry is missing (an
+    encoder without BatchNorm has no batch_stats)."""
+    return None if tree is None else tree.get(name)
+
+
+def _bn(sd: dict, src_p, src_s, dst: str) -> None:
+    """A flax BatchNorm's scale/bias (and mean/var, unless ``src_s`` is
+    None) → a torch BatchNorm2d's keys under ``dst``."""
+    sd[f"{dst}.weight"] = _a(src_p["scale"])
+    sd[f"{dst}.bias"] = _a(src_p["bias"])
+    if src_s is None:
+        return
+    sd[f"{dst}.running_mean"] = _a(src_s["mean"])
+    sd[f"{dst}.running_var"] = _a(src_s["var"])
+    sd[f"{dst}.num_batches_tracked"] = torch.tensor(0)
+
+
+def _conv_b(sd: dict, src, dst: str) -> None:
+    """A flax conv with bias → ``dst.weight`` and ``dst.bias``."""
+    sd[f"{dst}.weight"] = _conv(src["kernel"])
+    sd[f"{dst}.bias"] = _a(src["bias"])
 
 
 def fe_state_dict(params: dict, stats: dict | None,
@@ -55,18 +92,8 @@ def fe_state_dict(params: dict, stats: dict | None,
     """JAX ResNetFE params + batch_stats → ``models.resnet.ResNetFE`` keys.
     ``stats=None`` maps the parameters only."""
     sd: dict = {}
-
-    def bn(src_p, src_s, dst):
-        sd[f"{dst}.weight"] = _a(src_p["scale"])
-        sd[f"{dst}.bias"] = _a(src_p["bias"])
-        if src_s is None:
-            return
-        sd[f"{dst}.running_mean"] = _a(src_s["mean"])
-        sd[f"{dst}.running_var"] = _a(src_s["var"])
-        sd[f"{dst}.num_batches_tracked"] = torch.tensor(0)
-
     sd[_join(prefix, "0.weight")] = _conv(params["conv1"]["kernel"])
-    bn(params["bn1"], _sub(stats, "bn1"), _join(prefix, "1"))
+    _bn(sd, params["bn1"], _sub(stats, "bn1"), _join(prefix, "1"))
     for name in sorted(params):
         if not name.startswith("layer"):
             continue
@@ -77,15 +104,98 @@ def fe_state_dict(params: dict, stats: dict | None,
         while f"Conv_{ci}" in src_p:
             sd[f"{dst}.conv{ci + 1}.weight"] = _conv(
                 src_p[f"Conv_{ci}"]["kernel"])
-            bn(src_p[f"BatchNorm_{ci}"], _sub(src_s, f"BatchNorm_{ci}"),
-               f"{dst}.bn{ci + 1}")
+            _bn(sd, src_p[f"BatchNorm_{ci}"], _sub(src_s, f"BatchNorm_{ci}"),
+                f"{dst}.bn{ci + 1}")
             ci += 1
         if "downsample_conv" in src_p:
             sd[f"{dst}.downsample.0.weight"] = _conv(
                 src_p["downsample_conv"]["kernel"])
-            bn(src_p["downsample_bn"], _sub(src_s, "downsample_bn"),
-               f"{dst}.downsample.1")
+            _bn(sd, src_p["downsample_bn"], _sub(src_s, "downsample_bn"),
+                f"{dst}.downsample.1")
     return sd
+
+
+def squeezenet_state_dict(params: dict, prefix: str = "") -> dict:
+    """JAX SqueezeNetFE params → torchvision ``features.*`` keys (the
+    inverse of the JAX package's ``convert_torch_squeezenet_state``)."""
+    sd: dict = {}
+    _conv_b(sd, params["conv1"], _join(prefix, "features.0"))
+    for fi, pos in enumerate(_SQUEEZENET_FIRE_IDX):
+        for sub in ("squeeze", "expand1x1", "expand3x3"):
+            _conv_b(sd, params[f"fire{fi}"][sub],
+                    _join(prefix, f"features.{pos}.{sub}"))
+    return sd
+
+
+def vgg_state_dict(params: dict, prefix: str = "") -> dict:
+    """JAX VGGFE params → torchvision ``features.*`` keys (the inverse of
+    ``convert_torch_vgg_state``)."""
+    sd: dict = {}
+    for ci, pos in enumerate(_VGG16_CONV_IDX):
+        _conv_b(sd, params[f"conv{ci}"], _join(prefix, f"features.{pos}"))
+    return sd
+
+
+def densenet_state_dict(params: dict, stats: dict | None,
+                        prefix: str = "") -> dict:
+    """JAX DenseNetFE params + batch_stats → torchvision ``features.*``
+    keys (the inverse of ``convert_torch_densenet_state``)."""
+    sd: dict = {}
+    f = _join(prefix, "features")
+    sd[f"{f}.conv0.weight"] = _conv(params["conv0"]["kernel"])
+    for name in sorted(params):
+        src_p, src_s = params[name], _sub(stats, name)
+        if name.startswith("denseblock"):
+            block, layer = name.split("_")
+            dst = f"{f}.{block}.dense{layer}"
+            for i in (1, 2):
+                _bn(sd, src_p[f"norm{i}"], _sub(src_s, f"norm{i}"),
+                    f"{dst}.norm{i}")
+                sd[f"{dst}.conv{i}.weight"] = _conv(
+                    src_p[f"conv{i}"]["kernel"])
+        elif name.startswith("transition"):
+            block, part = name.split("_")
+            if part == "norm":
+                _bn(sd, src_p, src_s, f"{f}.{block}.norm")
+            else:
+                sd[f"{f}.{block}.conv.weight"] = _conv(src_p["kernel"])
+        elif name.startswith("norm"):
+            _bn(sd, src_p, src_s, f"{f}.{name}")
+    return sd
+
+
+def inception_state_dict(params: dict, stats: dict | None,
+                         prefix: str = "") -> dict:
+    """JAX InceptionV3FE params + batch_stats → torchvision keys
+    (``Conv2d_1a_3x3.conv.weight``, ``Mixed_5b.branch1x1.bn.*``, ...; the
+    inverse of ``convert_torch_inception_state``)."""
+    sd: dict = {}
+
+    def walk(src_p, src_s, dst):
+        if "conv" in src_p and "bn" in src_p:    # a BasicConv2d
+            sd[f"{dst}.conv.weight"] = _conv(src_p["conv"]["kernel"])
+            _bn(sd, src_p["bn"], _sub(src_s, "bn"), f"{dst}.bn")
+            return
+        for name in src_p:
+            walk(src_p[name], _sub(src_s, name), _join(dst, name))
+
+    walk(params, stats, prefix)
+    return sd
+
+
+def any_fe_state_dict(params: dict, stats: dict | None,
+                      prefix: str = "") -> dict:
+    """Any JAX feature extractor → the port's keys; the encoder is told
+    apart by its parameter names."""
+    if "Conv2d_1a_3x3" in params:
+        return inception_state_dict(params, stats, prefix)
+    if "norm0" in params:
+        return densenet_state_dict(params, stats, prefix)
+    if "fire0" in params:
+        return squeezenet_state_dict(params, prefix)
+    if "conv0" in params:
+        return vgg_state_dict(params, prefix)
+    return fe_state_dict(params, stats, prefix)
 
 
 def feat_state_dict(p: dict, prefix: str = "") -> dict:
@@ -144,12 +254,14 @@ def from_jax_variables(model_name: str, variables: dict) -> dict:
     sd: dict = {}
     for subtree, prefix, kind in _FAMILY_LAYOUT[model_name]:
         if kind == "fe":
-            sd.update(fe_state_dict(
-                params[subtree], None if stats is None else stats[subtree],
-                prefix))
+            sd.update(any_fe_state_dict(params[subtree],
+                                        _sub(stats, subtree), prefix))
         elif kind == "feat":
             sd.update(feat_state_dict(params[subtree], prefix))
         elif kind == "clin":
             sd[f"{prefix}._fe.0.weight"] = _t(params[subtree]["fe"]["kernel"])
             sd[f"{prefix}._fe.0.bias"] = _a(params[subtree]["fe"]["bias"])
+        elif kind == "dense":
+            sd[f"{prefix}.weight"] = _t(params[subtree]["kernel"])
+            sd[f"{prefix}.bias"] = _a(params[subtree]["bias"])
     return sd

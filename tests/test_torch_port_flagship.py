@@ -121,9 +121,11 @@ def test_full_width_flagship_has_the_bench_parameter_count():
 
 
 def test_registry_holds_only_ported_families():
-    assert set(dict_models) == {NAME} and MODEL_ARITY == {NAME: 4}
+    assert set(dict_models) == {"XR1Cnn", "MR1CnnTrf", "MR2CnnTrf",
+                                "XR1MR1CnnTrf", "XR1MR2CnnTrf", NAME}
+    assert MODEL_ARITY[NAME] == 4
     with pytest.raises(KeyError, match="not ported"):
-        from_jax_variables("XR1Cnn", {"params": {}})
+        from_jax_variables("XR2Cnn", {"params": {}})
 
 
 @pytest.mark.parametrize("knob", ["s2d_stem", "remat", "dense_groups"])

@@ -69,3 +69,73 @@ def flagship_raw_inputs(batch):
         * 1e-4,
         rng.rand(batch, 1, 9).astype(np.float32),
     )
+
+
+# the other five families at test size: resnet18 FEs, depth-1 FeaTs, uint8
+# inputs downscaled by half in every extent
+FAMILY_BATCH = 2
+FAMILY_ATOL = 5e-4
+FAMILY_AGG = {"depth": 1, "heads": 2, "emb_dropout": 0.1, "mlp_dim": 64,
+              "mlp_dropout": 0.1}
+FAMILY_FE = {"arch": "resnet18", "pretrained": False, "with_gap": True,
+             "dropout": 0.0}
+FAMILY_XR, FAMILY_DESS, FAMILY_TSE = (32, 32), (32, 32, 8), (32, 32, 4)
+FAMILY_MODALS = {"XR1Cnn": ["xr_pa"], "MR1CnnTrf": ["sag_3d_dess"],
+                 "MR2CnnTrf": ["sag_3d_dess", "cor_iw_tse"],
+                 "XR1MR1CnnTrf": ["xr_pa", "sag_3d_dess"],
+                 "XR1MR2CnnTrf": ["xr_pa", "sag_3d_dess", "cor_iw_tse"]}
+
+
+def family_cfg(name, sizes, fe, agg):
+    return {"name": name, "input_size": [list(s) for s in sizes],
+            "downscale": [[0.5] * len(s) for s in sizes],
+            "input_channels": 1, "output_channels": 2,
+            "output_type": "dict", "debug": False, "restore_weights": False,
+            "fe": fe, "agg": agg}
+
+
+def mr_fe(dims_view="rc", with_gap=True):
+    return dict(FAMILY_FE, dims_view=dims_view, with_gap=with_gap)
+
+
+def check_predictor_against_jax(cfg):
+    """The port's ``make_predictor`` (CPU, float32) on raw uint8 inputs
+    against the JAX ``make_preprocess_fn(train=False)`` + ``apply`` +
+    softmax on the same weights: probabilities and logits within
+    FAMILY_ATOL."""
+    import jax.numpy as jnp
+    import torch
+
+    from oaprogressionmmf_tpu.models import dict_models as jax_models
+    from oaprogressionmmf_tpu.train.trainer import make_preprocess_fn
+    from oaprogressionmmf_torch.serving import make_predictor
+    from oaprogressionmmf_torch.utils.convert import from_jax_variables
+
+    name = cfg["name"]
+    rng = np.random.RandomState(0)
+    xs = tuple(rng.randint(0, 256, (FAMILY_BATCH, 1) + tuple(s),
+                           dtype=np.uint8) for s in cfg["input_size"])
+    model = jax_models[name](config=cfg)
+    preproc = make_preprocess_fn(FAMILY_MODALS[name], cfg["downscale"],
+                                 train=False)
+    inputs = preproc(tuple(jnp.asarray(x) for x in xs))
+    variables = synth_variables(
+        lambda: model.init(jax.random.key(0), *inputs, train=False), seed=7)
+    with jax.default_matmul_precision("highest"):
+        out = jax.jit(lambda v, xs: model.apply(v, *preproc(xs),
+                                                train=False))(
+            variables, tuple(jnp.asarray(x) for x in xs))
+    want_logits = np.asarray(out["main"])
+    want = np.asarray(jax.nn.softmax(want_logits, axis=-1))
+
+    predictor = make_predictor(cfg, from_jax_variables(name, variables),
+                               FAMILY_MODALS[name], cfg["downscale"],
+                               device="cpu", dtype=torch.float32)
+    probs = predictor(xs)
+    assert probs.dtype == torch.float32
+    assert probs.shape == (FAMILY_BATCH, 2)
+    np.testing.assert_allclose(probs.numpy(), want, atol=FAMILY_ATOL)
+    np.testing.assert_allclose(predictor.logits(xs).numpy(), want_logits,
+                               atol=FAMILY_ATOL)
+    # the inputs reach the logits: the knees differ
+    assert np.abs(want_logits[0] - want_logits[1]).max() > 1e-3
