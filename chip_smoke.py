@@ -21,6 +21,16 @@ Phases (any failure exits non-zero; nothing is caught):
      out; bf16 against the unfused F.batch_norm → relu → max_pool2d; times
      of the kernel, the plain version and the unfused three library calls
      (no single PyTorch call computes this function) beside the bound;
+ 3d. the int8 implicit-GEMM convolution K5 against its plain version (a
+     float64 convolution of the int8 values, exact) bit for bit at every
+     int8 conv shape of the flagship at batch 4 (DESS 256 and T2 100
+     slices of 160² through ResNet50, the X-ray at 350² through
+     ResNeXt50-32x4d with 32 groups: the 7x7/s2 stems, the 3x3/s1 and
+     3x3/s2 convs), with a planted ±127 input against overflow; times of
+     the kernel, the plain version and two labelled library yardsticks
+     (torch._int_mm on an explicit im2col, the GEMM alone; the bf16
+     channels_last F.conv2d of the same shape) beside the bound, per call
+     and per request (51 launches);
   4. the flagship XR1MR2C1CnnTrf inference slice at the full width of
      bench.py's config: random weights from bench_param_spec.json (seeded,
      bench.py's recipe), carried across with from_jax_variables and loaded
@@ -32,6 +42,17 @@ Phases (any failure exits non-zero; nothing is caught):
      port on the same inputs, beside how far knees and slices differ in the
      same quantities; one float32 MRI ResNet50 through K4 against its own
      children run unfused;
+ 4c. int8 serving of the same flagship at full width: the port's
+     export_serving_bundle calibrates on the card with one batch and
+     writes an int8-all bundle (and an int8 one) in the JAX layout to a
+     temporary directory, load_serving_bundle reads it back, and a few
+     batch-4 requests run with every launch count set to 0 just before and
+     read just after (51 K5, 12 K1 and 3 K4 per request in both modes; the
+     int8 mode's FeaTs stay bf16); probabilities finite; the final FeaT's
+     tokens and states, less their mean over knees, within CENTRED_RTOL of
+     the bf16 request's input-driven part; ms per request, knees/s, device
+     busy time and idle share beside the bf16 request, with a profiler
+     breakdown;
  4b. the five other families at the full width of their YAML configs
      (XR 700² → ResNeXt50-32x4d at 350², or ResNet50 for XR1Cnn; DESS
      320²×128 → 64 slices of 160²; COR IW TSE 320²×32 → 32 slices) with
@@ -43,7 +64,8 @@ Phases (any failure exits non-zero; nothing is caught):
  3b. the flash backward kernels K2 (dq) and K3 (dk, dv) against their
      plain PyTorch versions on the same inputs and the same (O, lse) from
      K1, at the training step's shapes (B, H) = (8, 8), D = 256, N in
-     {25, 64, 92, 2432}, and D in {32, 64, 128} for correctness only; times
+     {25, 64, 92, 2432}, and D in {32, 48, 64, 128, 276} for correctness
+     (48 and 276, DenseNet-161's heads, run padded; 276 also timed); times
      of each kernel, the plain versions, the backward of
      F.scaled_dot_product_attention on a retained graph (library_ms, a
      yardstick the port never calls) and the bound;
@@ -73,8 +95,10 @@ import copy
 import gc
 import importlib
 import json
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -110,9 +134,11 @@ MODEL_CFG = {
             "emb_dropout": 0.1, "mlp_dim": 2048, "mlp_dropout": 0.1},
 }
 
-# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
+# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit; int8 in
+# operations per second)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12,
+              torch.int8: 1979e12}
 
 # flash-attention forward: the FeaT shapes of one flagship forward
 FLASH_BH = (BATCH, 8)
@@ -182,6 +208,14 @@ FAMILIES = {
 ENCODERS = ("squeezenet1_0", "vgg16", "densenet161", "inception_v3")
 FAMILY_REQUESTS = 3
 ENCODER_BATCH = 2
+
+# phase 3d: K5 at the flagship's int8 convs; phase 4c: int8 serving
+K5_PER_REQUEST = 51       # 17 convs (stem, 13 3x3/s1, 3 3x3/s2) x 3 FEs
+INT8_MODES = ("int8-all", "int8")
+# DenseNet-161 FeaT heads (2208 / 8), the width K2/K3 now pad to 288; its
+# MR1CnnTrf FeaT holds 64 slice tokens and a CLS token
+PAD_D = 276
+PAD_N = 65
 
 # the training step: prog_fus.yaml's training config
 TRAIN_BATCH = 8
@@ -452,15 +486,40 @@ def phase_flash_bwd() -> dict:
         return tuple(torch.randn(b, h, n, d, device=dev,
                                  generator=gen).to(dtype) for _ in range(4))
 
-    for d in (32, 64, 128):
-        for dtype in (torch.float32, torch.bfloat16):
-            for n in (92, 130):
-                check_flash_bwd(*inputs(n, d, dtype), d ** -0.5)
-
     records = {kern: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
                       "bound_ms": 0.0, "max_abs_err": 0.0, "per_n": [],
-                      "parts": {"bytes": 0.0, "operations": 0.0}}
+                      "parts": {"bytes": 0.0, "operations": 0.0},
+                      "d276": {"n": PAD_N, "d": PAD_D}}
                for kern in ("dq", "dkv")}
+    # the other head widths, for correctness: 48 and 276 (a DenseNet-161
+    # FeaT's 2208 / 8, at its full-width scale) run padded to 64 and 288
+    for d in (32, 48, 64, 128, PAD_D):
+        scale = (8 * d) ** -0.5 if d == PAD_D else d ** -0.5
+        for dtype in (torch.float32, torch.bfloat16):
+            for n in (92, 130):
+                errs = check_flash_bwd(*inputs(n, d, dtype), scale)
+                if d != PAD_D:
+                    continue
+                for kern, err in errs.items():
+                    key = f"max_abs_err_{str(dtype)[6:]}"
+                    rec = records[kern]["d276"]
+                    rec[key] = max(rec.get(key, 0.0), err)
+    q, k, v, do = inputs(PAD_N, PAD_D, torch.bfloat16)
+    scale = (8 * PAD_D) ** -0.5
+    out, lse = fa.flash_attention(q, k, v, scale)
+    _, delta = fa.launch_bwd_dq(q, k, v, out, lse, do, scale)
+    for kern, (kernel_fn, plain_fn) in {
+            "dq": (lambda: fa.launch_bwd_dq(q, k, v, out, lse, do, scale),
+                   lambda: fa.bwd_dq_plain(q, k, v, out, lse, do, scale)),
+            "dkv": (lambda: fa.launch_bwd_dkv(q, k, v, do, lse, delta, scale),
+                    lambda: fa.bwd_dkv_plain(q, k, v, do, lse, delta,
+                                             scale))}.items():
+        rec = records[kern]["d276"]
+        rec["ms"], rec["plain_ms"] = time_ms(kernel_fn, 100), time_ms(
+            plain_fn, 100)
+        log(f"[flash_bwd] bf16 {kern} at D={PAD_D} (padded to 288), N={PAD_N}"
+            f" (B,H)={(b, h)}: kernel {rec['ms']:.4f} ms, plain "
+            f"{rec['plain_ms']:.4f} ms")
     for dtype in (torch.float32, torch.bfloat16):
         for n in CHECK_N:
             q, k, v, do = inputs(n, FLASH_D, dtype)
@@ -661,6 +720,152 @@ def phase_stem() -> dict:
     return record
 
 
+def int8_module():
+    """The int8 convolution module (K5)."""
+    return importlib.import_module("oaprogressionmmf_torch.ops.int8_conv")
+
+
+def resnet_int8_convs(fe: str, n: int, size: int, groups: int = 1,
+                      base_width: int = 64) -> list:
+    """The K5 convs of one int8 ResNet50 (ResNeXt50 with ``groups``) FE on
+    n grayscale images of size²: [(label, x shape NHWC, Cout, k, stride,
+    pad, groups, launches per request)]."""
+    convs = [(f"{fe} stem 7x7/s2", (n, size, size, 1), 64, 7, 2, 3, 1, 1)]
+    s = ((size + 1) // 2 + 1) // 2            # conv1 /2, max pool /2
+    for i, blocks in enumerate((3, 4, 6, 3)):
+        w = int(64 * 2 ** i * base_width / 64) * groups
+        if i > 0:
+            convs.append((f"{fe} stage{i + 1} 3x3/s2", (n, s, s, w), w, 3, 2,
+                          1, groups, 1))
+            s = (s + 1) // 2
+        convs.append((f"{fe} stage{i + 1} 3x3/s1", (n, s, s, w), w, 3, 1, 1,
+                      groups, blocks - (i > 0)))
+    return convs
+
+
+def flagship_int8_convs() -> list:
+    """Every K5 conv of one batch-4 int8 flagship request: the X-ray
+    through ResNeXt50-32x4d at 350², 64 DESS and 25 T2 slices per knee
+    through ResNet50 at 160²."""
+    convs = (resnet_int8_convs("xr", BATCH, 350, groups=32, base_width=4)
+             + resnet_int8_convs("dess", BATCH * 64, 160)
+             + resnet_int8_convs("t2", BATCH * 25, 160))
+    assert sum(c[-1] for c in convs) == K5_PER_REQUEST
+    return convs
+
+
+def int8_conv_inputs(xshape, cout, k, groups, gen):
+    x = torch.randint(-127, 128, xshape, dtype=torch.int8, device="cuda",
+                      generator=gen)
+    w = torch.randint(-127, 128, (cout, xshape[3] // groups, k, k),
+                      dtype=torch.int8, device="cuda", generator=gen)
+    return x, w
+
+
+def check_int8_conv(label, x, w, stride, pad, groups) -> None:
+    """K5 against its plain version: equal bit for bit, or exit."""
+    ic = int8_module()
+    got = ic.int8_conv2d(x, w, stride, pad, groups)
+    want = ic.int8_conv2d_plain(x, w, stride, pad, groups)
+    torch.cuda.synchronize()
+    n_diff = int((got != want).sum().item()) if got.shape == want.shape \
+        else -1
+    log(f"[int8_conv] {label:22s} x{tuple(x.shape)} w{tuple(w.shape)} "
+        f"s{stride} g{groups} -> {tuple(got.shape)}: {n_diff} values differ "
+        f"from the plain version (max|y| {want.abs().max().item()}) "
+        f"{'ok' if n_diff == 0 else 'FAIL'}")
+    if n_diff != 0:
+        raise SystemExit(f"K5 disagrees with its plain version at {label}")
+
+
+def int8_conv_bound_ms(x, w, out) -> tuple[float, str]:
+    """Least time for one call: x and w read once, the int32 output written
+    once; 2 operations per int8 product at the int8 dense peak."""
+    nbytes = x.numel() + w.numel() + 4 * out.numel()
+    ops = 2 * out.numel() * w[0].numel()
+    return roofline_ms(nbytes, ops, torch.int8)
+
+
+def im2col_int8(x, w, stride, pad, groups):
+    """The library yardstick's operands: an explicit (M, K) int8 im2col of
+    x and the (Cout, K) int8 weight, K padded to a multiple of 8; a grouped
+    weight becomes its block-diagonal dense form (the JAX package's)."""
+    k = w.shape[-1]
+    cols = F.unfold(x.permute(0, 3, 1, 2).float(), k, padding=pad,
+                    stride=stride)                  # (N, C*k*k, L)
+    a = cols.transpose(1, 2).reshape(-1, cols.shape[1]).to(torch.int8)
+    del cols
+    if groups > 1:
+        cout, cg = w.shape[:2]
+        dense = torch.zeros(cout, cg * groups, k, k, dtype=torch.int8,
+                            device=w.device)
+        for g in range(groups):
+            rows = slice(g * cout // groups, (g + 1) * cout // groups)
+            dense[rows, g * cg:(g + 1) * cg] = w[rows]
+        w = dense
+    b = w.reshape(w.shape[0], -1)
+    kp = -(-a.shape[1] // 8) * 8
+    if kp != a.shape[1]:
+        a = F.pad(a, (0, kp - a.shape[1]))
+        b = F.pad(b, (0, kp - b.shape[1]))
+    return a.contiguous(), b.contiguous()
+
+
+def phase_int8_conv() -> dict:
+    """Phase 3d: K5 bit for bit against its plain version at every int8
+    conv shape of the flagship, a planted ±127 input, and times."""
+    ic = int8_module()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    record = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+              "library_bf16_conv_ms": 0.0, "bound_ms": 0.0,
+              "max_abs_err": 0, "per_shape": []}
+    parts = {"bytes": 0.0, "operations": 0.0}
+    for label, xshape, cout, k, stride, pad, groups, reps in \
+            flagship_int8_convs():
+        x, w = int8_conv_inputs(xshape, cout, k, groups, gen)
+        check_int8_conv(label, x, w, stride, pad, groups)
+        out = ic.int8_conv2d(x, w, stride, pad, groups)
+        a, b = im2col_int8(x, w, stride, pad, groups)
+        xb = x.permute(0, 3, 1, 2).to(torch.bfloat16)     # channels_last
+        wb = w.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        t_k = time_ms(lambda: ic.int8_conv2d(x, w, stride, pad, groups), 20)
+        t_p = time_ms(lambda: ic.int8_conv2d_plain(x, w, stride, pad, groups),
+                      2)
+        t_l = time_ms(lambda: torch._int_mm(a, b.t()), 20)
+        t_b = time_ms(lambda: F.conv2d(xb, wb, None, stride, pad, 1, groups),
+                      20)
+        bound, by = int8_conv_bound_ms(x, w, out)
+        log(f"[int8_conv] {label:22s} x{xshape} Cout {cout} k{k} s{stride} "
+            f"g{groups} ({reps}/request): kernel {t_k:.4f} ms  plain "
+            f"{t_p:.4f} ms  int_mm on im2col {t_l:.4f} ms  bf16 conv "
+            f"{t_b:.4f} ms  bound {bound:.5f} ms ({by})")
+        record["per_shape"].append(dict(
+            name=label, x=list(xshape), cout=cout, k=k, stride=stride,
+            groups=groups, per_request=reps, ms=t_k, plain_ms=t_p,
+            library_ms=t_l, library_bf16_conv_ms=t_b, bound_ms=bound,
+            bound_by=by))
+        for key, t in (("ms", t_k), ("plain_ms", t_p), ("library_ms", t_l),
+                       ("library_bf16_conv_ms", t_b), ("bound_ms", bound)):
+            record[key] += reps * t
+        parts[by] += reps * bound
+        del x, w, out, a, b, xb, wb
+        torch.cuda.empty_cache()
+    # a planted ±127 input and weight at the deepest reduction (9 x 512)
+    x = torch.full((BATCH * 64, 5, 5, 512), 127, dtype=torch.int8,
+                   device="cuda")
+    x[::2] = -127
+    w = torch.full((512, 512, 3, 3), 127, dtype=torch.int8, device="cuda")
+    w[1::3] = -127
+    check_int8_conv("planted +-127", x, w, 1, 1, 1)
+    record["bound_by"] = max(parts, key=parts.get)
+    log(f"[int8_conv] per flagship request ({K5_PER_REQUEST} launches): "
+        f"kernel {record['ms']:.4f} ms, plain {record['plain_ms']:.4f} ms, "
+        f"int_mm on im2col {record['library_ms']:.4f} ms, bf16 conv "
+        f"{record['library_bf16_conv_ms']:.4f} ms, bound "
+        f"{record['bound_ms']:.5f} ms ({record['bound_by']})")
+    return record
+
+
 def synth_state_dict():
     """bench.py's parameter recipe over bench_param_spec.json (params and
     batch_stats; the int8 quant_acts are not part of the bf16 path)."""
@@ -790,6 +995,7 @@ def compare_dtypes(got: dict, want: dict, segments: dict) -> None:
 # match wins)
 KERNEL_CATEGORIES = (
     ("fused stem (bn_relu_pool)", ("bn_relu_pool",)),
+    ("int8 conv (K5)", ("int8_conv_kernel",)),
     ("attention backward (flash_bwd)", ("flash_bwd_dq_kernel",
                                         "flash_bwd_dkv_kernel")),
     ("attention (flash_fwd)", ("flash_fwd",)),
@@ -826,7 +1032,7 @@ def device_breakdown(fn, latency_ms: float, what: str = "request") -> None:
     if busy == 0:
         log("[profile] the profiler saw no device time: breakdown not "
             "measured")
-        return
+        return None
     by_cat: dict = {}
     for e in kernels:
         name = e.key.lower()
@@ -841,6 +1047,7 @@ def device_breakdown(fn, latency_ms: float, what: str = "request") -> None:
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
         log(f"[profile]   top: {e.self_device_time_total / 1e3:8.3f} ms "
             f"x{e.count:<4d} {e.key[:90]}")
+    return busy
 
 
 def phase_slice(card: str, sd: dict):
@@ -860,8 +1067,7 @@ def phase_slice(card: str, sd: dict):
         predictor(xs).cpu()
     torch.cuda.reset_peak_memory_stats()
 
-    flash_attention.launches = 0
-    stem_module().fused_bn_relu_pool.launches = 0
+    reset_launch_counts()
     latencies = []
     for _ in range(REQUESTS):
         t = time.perf_counter()
@@ -869,6 +1075,8 @@ def phase_slice(card: str, sd: dict):
         latencies.append(time.perf_counter() - t)
     launches = flash_attention.launches
     stem_launches = stem_module().fused_bn_relu_pool.launches
+    if int8_module().int8_conv2d.launches:
+        raise SystemExit("the bf16 request launched the int8 conv K5")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     log(f"[slice] {REQUESTS} requests of batch {BATCH}: flash launches "
@@ -888,7 +1096,7 @@ def phase_slice(card: str, sd: dict):
         f"mean {lat.mean():.2f} ms, min {lat.min():.2f}, max "
         f"{lat.max():.2f}; {BATCH * 1e3 / lat.mean():.1f} knees/s; peak "
         f"device memory {peak_gb:.2f} GB  [{card}]")
-    device_breakdown(lambda: predictor(xs).cpu(), float(lat.mean()))
+    busy = device_breakdown(lambda: predictor(xs).cpu(), float(lat.mean()))
 
     model = predictor.model
     counts = model._token_counts(model._shapes(3), n_mr=2)
@@ -905,7 +1113,9 @@ def phase_slice(card: str, sd: dict):
         "and inputs:")
     compare_dtypes(got, capture(predictor32, xs), segments)
     check_fe_stem(predictor32.model._fe1)
-    return launches, stem_launches
+    bf16 = {"capture": got, "segments": segments, "ms": float(lat.mean()),
+            "busy_ms": busy}
+    return launches, stem_launches, bf16
 
 
 def check_fe_stem(fe) -> None:
@@ -939,6 +1149,104 @@ def check_fe_stem(fe) -> None:
     if not ok:
         raise SystemExit("the FE through the fused stem disagrees with the "
                          "unfused FE")
+
+
+def compare_int8(got: dict, want: dict, segments: dict, label: str) -> None:
+    """int8 serving against the bf16 request: each token segment of the
+    final FeaT's input and output at CENTRED_RTOL of its input-driven part
+    (the bar of compare_dtypes); the logits are reported."""
+    failed = []
+    for key in ("tokens", "states"):
+        offset = 1 if key == "states" else 0   # the CLS token comes first
+        for name, (lo, hi) in segments.items():
+            rel, share, centred = centred_error(
+                got[key][:, lo + offset:hi + offset],
+                want[key][:, lo + offset:hi + offset])
+            ok = centred <= CENTRED_RTOL
+            log(f"[int8] {label} {key:6s} {name:5s} ({hi - lo:2d} tokens): "
+                f"max|d|/max|bf16| {rel:.4e}, input-driven share "
+                f"{share:.4e}, centred error {centred:.4e} (tol "
+                f"{CENTRED_RTOL}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failed.append(f"{key}/{name}")
+    d_logit = (got["logits"] - want["logits"]).abs().max().item()
+    d_prob = (torch.softmax(got["logits"], -1)
+              - torch.softmax(want["logits"], -1)).abs().max().item()
+    log(f"[int8] {label} logits against bf16: max|d| {d_logit:.4e}, "
+        f"max|dprob| {d_prob:.4e} (not held to a limit); int8 logits "
+        f"{got['logits'].cpu().numpy().tolist()}")
+    if failed:
+        raise SystemExit(f"{label} serving disagrees with the bf16 run: "
+                         f"{failed}")
+
+
+def phase_int8_serving(card: str, sd: dict, bf16: dict) -> dict:
+    """Phase 4c: each int8 mode exported to a bundle (calibrated on the
+    card with one batch), loaded back and served; returns per mode the
+    launch counts, ms per request and busy time."""
+    from oaprogressionmmf_torch.serving import (export_serving_bundle,
+                                                load_serving_bundle)
+    xs = raw_inputs()
+    results = {}
+    with tempfile.TemporaryDirectory(prefix="int8_bundles_") as tmp:
+        for quant in INT8_MODES:
+            path = Path(tmp) / quant
+            t0 = time.perf_counter()
+            export_serving_bundle(path, MODEL_CFG, MODALS,
+                                  MODEL_CFG["downscale"], sd,
+                                  calib_batches=[xs], quant=quant,
+                                  dtype=torch.bfloat16, source="chip_smoke")
+            t_export = time.perf_counter() - t0
+            size_gb = (path / "bundle.msgpack").stat().st_size / 1e9
+            t0 = time.perf_counter()
+            predictor = load_serving_bundle(path)
+            torch.cuda.synchronize()
+            t_load = time.perf_counter() - t0
+            log(f"[int8] {quant}: calibrated on {predictor.device} and "
+                f"exported ({size_gb:.2f} GB bundle) in {t_export:.1f} s, "
+                f"loaded back strictly in {t_load:.1f} s")
+            for _ in range(WARMUP_REQUESTS):
+                predictor(xs).cpu()
+            reset_launch_counts()
+            latencies = []
+            for _ in range(REQUESTS):
+                t = time.perf_counter()
+                probs = predictor(xs).cpu()
+                latencies.append(time.perf_counter() - t)
+            counts = {"K5": int8_module().int8_conv2d.launches,
+                      "K1": flash_module().flash_attention.launches,
+                      "K4": stem_module().fused_bn_relu_pool.launches}
+            want = {"K5": K5_PER_REQUEST, "K1": 12, "K4": 3}
+            log(f"[int8] {quant}: {REQUESTS} requests of batch {BATCH}: "
+                f"launches per request "
+                f"{ {k: v / REQUESTS for k, v in counts.items()} } (want "
+                f"{want})")
+            if any(counts[k] != want[k] * REQUESTS for k in want):
+                raise SystemExit(f"{quant}: launch counts {counts} over "
+                                 f"{REQUESTS} requests, want {want} each")
+            if probs.shape != (BATCH, 2) or not torch.isfinite(probs).all():
+                raise SystemExit(f"{quant}: bad probabilities {probs}")
+            lat = np.asarray(latencies) * 1e3
+            log(f"[int8] {quant}: latency per request (raw host arrays -> "
+                f"probs on host): mean {lat.mean():.2f} ms, min "
+                f"{lat.min():.2f}, max {lat.max():.2f}; "
+                f"{BATCH * 1e3 / lat.mean():.1f} knees/s; the bf16 request "
+                f"of this run {bf16['ms']:.2f} ms ("
+                f"{BATCH * 1e3 / bf16['ms']:.1f} knees/s)  [{card}]")
+            busy = device_breakdown(lambda: predictor(xs).cpu(),
+                                    float(lat.mean()))
+            log(f"[int8] {quant}: device busy {busy} ms against the bf16 "
+                f"request's {bf16['busy_ms']} ms")
+            compare_int8(capture(predictor, xs), bf16["capture"],
+                         bf16["segments"], quant)
+            results[quant] = dict(launches=counts, ms=float(lat.mean()),
+                                  min_ms=float(lat.min()),
+                                  max_ms=float(lat.max()), busy_ms=busy)
+            shutil.rmtree(path)          # ~1.6 GB of float32 weights
+            del predictor
+            gc.collect()
+            torch.cuda.empty_cache()
+    return results
 
 
 def family_cfg(name: str, mr_arch: str = "resnet50") -> dict:
@@ -1084,6 +1392,7 @@ def reset_launch_counts() -> None:
     fa.flash_attention_bwd.launches_dq = 0
     fa.flash_attention_bwd.launches_dkv = 0
     stem_module().fused_bn_relu_pool.launches = 0
+    int8_module().int8_conv2d.launches = 0
 
 
 def train_runtime(sd: dict, model_cfg: dict, dtype):
@@ -1122,16 +1431,17 @@ def phase_train(card: str, sd: dict) -> tuple:
         latencies.append(time.perf_counter() - t)
     counts = launch_counts()
     stem_launches = stem_module().fused_bn_relu_pool.launches
+    k5 = int8_module().int8_conv2d.launches
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     log(f"[train] {TRAIN_STEPS} steps of batch {TRAIN_BATCH}: launches K1 "
         f"{counts[0]}, K2 {counts[1]}, K3 {counts[2]} (per step "
-        f"{[c / TRAIN_STEPS for c in counts]}), K4 {stem_launches}; losses "
-        f"{losses}")
-    if counts != (12 * TRAIN_STEPS,) * 3 or stem_launches != 0:
+        f"{[c / TRAIN_STEPS for c in counts]}), K4 {stem_launches}, K5 {k5}; "
+        f"losses {losses}")
+    if counts != (12 * TRAIN_STEPS,) * 3 or stem_launches != 0 or k5 != 0:
         raise SystemExit(f"expected 12 launches of each of K1, K2 and K3 and "
-                         f"none of K4 per step, got {counts} and "
-                         f"{stem_launches} over {TRAIN_STEPS}")
+                         f"none of K4 and K5 per step, got {counts}, "
+                         f"{stem_launches} and {k5} over {TRAIN_STEPS}")
     if not all(np.isfinite(losses)) or logits.shape != (TRAIN_BATCH, 2) \
             or not torch.isfinite(logits).all():
         raise SystemExit(f"non-finite loss or bad logits: {losses}")
@@ -1236,6 +1546,7 @@ def main() -> int:
     flash = phase_flash()
     bwd = phase_flash_bwd()
     stem = phase_stem()
+    k5 = phase_int8_conv()
 
     t0 = time.perf_counter()
     sd = synth_state_dict()
@@ -1243,8 +1554,11 @@ def main() -> int:
                    if not k.endswith("num_batches_tracked"))
     log(f"[slice] synthesized {n_params} parameters + BN statistics in "
         f"{time.perf_counter() - t0:.1f} s")
-    launches, stem_launches = phase_slice(card, sd)
+    launches, stem_launches, bf16 = phase_slice(card, sd)
     gc.collect()                 # the inference predictors are freed
+    torch.cuda.empty_cache()
+    int8 = phase_int8_serving(card, sd, bf16)
+    gc.collect()
     torch.cuda.empty_cache()
     family_ms = phase_families(card)
     gc.collect()
@@ -1273,7 +1587,7 @@ def main() -> int:
             plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
             bound_by=rec["bound_by"], library_ms=rec["library_ms"],
             library_computes="dq, dk and dv (the whole SDPA backward)",
-            per_n=rec["per_n"]))
+            per_n=rec["per_n"], d276=rec["d276"]))
     kernels.append(dict(
         name="bn_relu_pool", route="cuda", source=src + "bn_pool.cu",
         replaces="oaprogressionmmf_tpu/ops/fused_stem.py:34",
@@ -1285,6 +1599,22 @@ def main() -> int:
                          "this function",
         bound_ms=stem["bound_ms"], bound_by=stem["bound_by"],
         library_ms=None, per_shape=stem["per_shape"]))
+    k5_launches = int8["int8-all"]["launches"]["K5"]
+    kernels.append(dict(
+        name="int8_conv2d", route="cuda", source=src + "int8_conv.cu",
+        replaces="scripts/exp_pallas_conv.py:28", launches=k5_launches,
+        launches_per_request=k5_launches / REQUESTS,
+        launches_int8_mode=int8["int8"]["launches"]["K5"],
+        max_abs_err=k5["max_abs_err"], ms=k5["ms"], plain_ms=k5["plain_ms"],
+        bound_ms=k5["bound_ms"], bound_by=k5["bound_by"],
+        library_ms=k5["library_ms"],
+        library_computes="torch._int_mm on an explicit int8 im2col: the "
+                         "GEMM alone, the im2col not timed",
+        library_bf16_conv_ms=k5["library_bf16_conv_ms"],
+        library_bf16_conv_computes="F.conv2d in bf16, channels_last, the "
+                                   "same shape",
+        per_shape=k5["per_shape"]))
+    log(f"[int8] ms per request: {json.dumps(int8)}")
     log(f"[family] ms per request: {json.dumps(family_ms)}")
     print(json.dumps({"kernels": kernels}))
     print(card)

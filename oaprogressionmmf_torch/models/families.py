@@ -13,7 +13,10 @@ names are the reference's (``_fe``, ``_fe0``..``_fe3``, ``_agg``, ``_agg_1``,
 are resolved at construction from ``input_size`` × ``downscale``.
 
 The model runs in the dtype of its parameters (``model.to(torch.bfloat16)``
-for serving); inputs are cast to it, logits come back in float32.
+for serving, or ``ops.quant.cast_model`` for a quantized model, whose
+int8 FEs stay float32); inputs are cast to it, logits come back in float32.
+``fe.quant`` (per branch) and ``agg.quant`` select the int8 serving modes
+of the ResNet FEs and the FeaTs, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .feat import FeaT
-from .resnet import FE_ARCHS, FE_OUT_CHANNELS, FE_STRIDE32
+from .resnet import FE_ARCHS, FE_OUT_CHANNELS, FE_STRIDE32, QUANT_FE_ARCHS
 
 
 def _downscaled(size: Sequence[int], factor) -> list[int]:
@@ -92,12 +95,12 @@ def _axis_token_count(shape_in: Sequence[int], spat: Sequence[int],
 
 
 def _make_fe(fe_cfg: dict, with_gap: bool) -> nn.Module:
-    """FE factory. ``fe.s2d_stem`` and ``fe.remat`` are TPU knobs the port
-    accepts and ignores; ``fe.quant`` is not ported yet."""
-    if fe_cfg.get("quant"):
-        raise NotImplementedError(
-            f"fe.quant={fe_cfg['quant']!r}: int8 serving is not ported yet "
-            f"(ROADMAP item 9)")
+    """FE factory. ``fe.quant`` quantizes the archs of QUANT_FE_ARCHS; the
+    others ignore it, as in the JAX package. ``fe.s2d_stem`` and
+    ``fe.remat`` are TPU knobs the port accepts and ignores."""
+    quant = fe_cfg.get("quant")
+    if quant and fe_cfg["arch"] in QUANT_FE_ARCHS:
+        return FE_ARCHS[fe_cfg["arch"]](with_gap=with_gap, quant=quant)
     return FE_ARCHS[fe_cfg["arch"]](with_gap=with_gap)
 
 
@@ -179,7 +182,11 @@ class _Family(nn.Module):
                 for i in range(n_branches)]
 
     def _dtype(self):
-        return next(self.parameters()).dtype
+        """The model dtype: that of the parameters outside the quantized
+        FEs, which stay float32."""
+        return next(p for m in self.children()
+                    if not getattr(m, "float32_subtree", False)
+                    for p in m.parameters()).dtype
 
     def _fe_tokens(self, fe, fe_cfg, x, volume: bool = False):
         """An image (B, 1, H, W), or a volume (B, 1, R, C, S) folded to its

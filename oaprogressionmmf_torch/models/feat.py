@@ -11,6 +11,14 @@ Attention runs through the flash kernel (ops/flash_attention.py) unless
 attention maps or a token mask are asked for. Scores are scaled by
 ``emb_dim ** -0.5`` (full model width, not head width), as the reference
 does.
+
+``quant`` (the JAX ``FeaT.quant``, eval-only) makes every dense a
+:class:`~..ops.quant.QLinear` in that mode: the patch embedding, the fused
+QKV projection, the attention output, the MLPs and the heads. LayerNorm,
+softmax, attention (the flash kernel) and the residual adds stay in the
+model dtype. The fused ``to_qkv`` has one activation site where the JAX
+package has three (``to_q``, ``to_k`` and ``to_v`` see the same input, so
+their calibrated statistics are equal).
 """
 
 from __future__ import annotations
@@ -19,16 +27,19 @@ import torch
 from torch import nn
 
 from ..ops.flash_attention import attention_reference, flash_attention
+from ..ops.quant import QLinear, check_quant_mode
 
 ATTN_IMPLS = ("flash", "reference", "auto")
 
 
 class FeedForward(nn.Module):
-    def __init__(self, dim: int, hidden_dim: int, dropout: float = 0.0):
+    def __init__(self, dim: int, hidden_dim: int, dropout: float = 0.0,
+                 quant: str | None = None):
         super().__init__()
         self.net = nn.Sequential(
-            nn.Linear(dim, hidden_dim), nn.GELU(), nn.Dropout(dropout),
-            nn.Linear(hidden_dim, dim), nn.Dropout(dropout))
+            QLinear(dim, hidden_dim, quant=quant), nn.GELU(),
+            nn.Dropout(dropout), QLinear(hidden_dim, dim, quant=quant),
+            nn.Dropout(dropout))
 
     def forward(self, x):
         return self.net(x)
@@ -43,14 +54,15 @@ class Attention(nn.Module):
     ``return_attn`` always takes :func:`attention_reference`."""
 
     def __init__(self, dim: int, heads: int = 8, dropout: float = 0.0,
-                 attn_impl: str = "flash"):
+                 attn_impl: str = "flash", quant: str | None = None):
         super().__init__()
         if attn_impl not in ATTN_IMPLS:
             raise ValueError(f"attn_impl={attn_impl!r}: use one of "
                              f"{ATTN_IMPLS}")
         self.dim, self.heads, self.attn_impl = dim, heads, attn_impl
-        self.to_qkv = nn.Linear(dim, 3 * dim, bias=False)
-        self.to_out = nn.Sequential(nn.Linear(dim, dim), nn.Dropout(dropout))
+        self.to_qkv = QLinear(dim, 3 * dim, bias=False, quant=quant)
+        self.to_out = nn.Sequential(QLinear(dim, dim, quant=quant),
+                                    nn.Dropout(dropout))
 
     def forward(self, x, return_attn: bool = False, mask=None):
         b, n, d = x.shape
@@ -76,15 +88,17 @@ class Attention(nn.Module):
 
 class Transformer(nn.Module):
     def __init__(self, dim: int, depth: int, heads: int, mlp_dim: int,
-                 dropout: float, attn_impl: str = "flash"):
+                 dropout: float, attn_impl: str = "flash",
+                 quant: str | None = None):
         super().__init__()
         self.depth = depth
         for d in range(depth):
             self.add_module(f"prenorm_0_{d}", nn.LayerNorm(dim, eps=1e-5))
-            self.add_module(f"attn_{d}", Attention(dim, heads, dropout,
-                                                   attn_impl=attn_impl))
+            self.add_module(f"attn_{d}", Attention(
+                dim, heads, dropout, attn_impl=attn_impl, quant=quant))
             self.add_module(f"prenorm_1_{d}", nn.LayerNorm(dim, eps=1e-5))
-            self.add_module(f"ff_{d}", FeedForward(dim, mlp_dim, dropout))
+            self.add_module(f"ff_{d}", FeedForward(dim, mlp_dim, dropout,
+                                                   quant=quant))
 
     def forward(self, x, return_attn: bool = False, mask=None):
         attentions = []
@@ -107,15 +121,12 @@ class FeaT(nn.Module):
                  num_outputs: int = 1, quant: str | None = None,
                  attn_impl: str = "flash"):
         super().__init__()
-        if quant:
-            raise NotImplementedError(
-                f"quant={quant!r}: int8 serving is not ported yet (ROADMAP "
-                f"item 9)")
+        check_quant_mode(quant)
         self.with_cls = with_cls
         self.num_cls_tokens = num_cls_tokens
         self.num_outputs = num_outputs
         n_cls = num_cls_tokens if with_cls else 0
-        self.patch_to_embedding = nn.Linear(patch_dim, emb_dim)
+        self.patch_to_embedding = QLinear(patch_dim, emb_dim, quant=quant)
         if with_cls:
             self.cls_token = nn.Parameter(
                 torch.randn(1, num_cls_tokens, emb_dim))
@@ -123,12 +134,14 @@ class FeaT(nn.Module):
             torch.randn(1, num_patches + n_cls, emb_dim))
         self.dropout = nn.Dropout(emb_dropout)
         self.transformer = Transformer(emb_dim, depth, heads, mlp_dim,
-                                       mlp_dropout, attn_impl=attn_impl)
+                                       mlp_dropout, attn_impl=attn_impl,
+                                       quant=quant)
         for i in range(num_outputs):
             self.add_module(f"mlp_head{i}", nn.Sequential(
-                nn.LayerNorm(emb_dim, eps=1e-5), nn.Linear(emb_dim, mlp_dim),
-                nn.GELU(), nn.Dropout(mlp_dropout),
-                nn.Linear(mlp_dim, num_classes)))
+                nn.LayerNorm(emb_dim, eps=1e-5),
+                QLinear(emb_dim, mlp_dim, quant=quant), nn.GELU(),
+                nn.Dropout(mlp_dropout),
+                QLinear(mlp_dim, num_classes, quant=quant)))
 
     def forward(self, features, return_attn: bool = False, mask=None):
         """features: (B, num_patches, patch_dim) → (outputs, states, attns).

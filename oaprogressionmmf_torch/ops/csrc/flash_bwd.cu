@@ -19,6 +19,13 @@
 // deterministic and no atomics are needed. lse is the forward's (B*H, N)
 // float32 array (flash_fwd.cu), not the TPU's 128-lane broadcast.
 //
+// Any head width d up to 288 runs, as in the forward kernel (the TPU
+// backward, _flash_bwd, pads D to 128 lanes). The widths 32, 64, 128 and
+// 256 have kernels of their own; any other runs in the kernel of the next
+// width of 32, 64, 128, 256 and 288 (kPad), whose columns at or past d are
+// staged as zeros and never stored, so they add exactly zero.
+// DenseNet-161's 2208-wide tokens in 8 heads give d = 276.
+//
 // What bounds it on an H100. At the flagship's training shapes (B*H = 64,
 // D = 256, N in {25, 64, 92}) one backward moves ~4-24 MB and does at most
 // ~1.4 GFLOP, so the bound from the card's memory rate is a few
@@ -71,16 +78,19 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// Stage rows r0 .. r0 + rows - 1 of a (n, D) array as float32 with row
-// stride `stride`; rows at or past n are zero.
-template <typename T, int D>
+// Stage rows r0 .. r0 + rows - 1 of a (n, dd) array as D float32 columns
+// with row stride `stride`; rows at or past n are zero, and with kPad the
+// columns at or past the arrays' own width d (dd = d) too.
+template <typename T, int D, bool kPad>
 __device__ __forceinline__ void stage(float* dst, const T* __restrict__ src,
-                                      int r0, int rows, int n, int stride) {
+                                      int r0, int rows, int n, int stride,
+                                      int d) {
+  const int dd = kPad ? d : D;
   for (int i = threadIdx.x; i < rows * D; i += kThreads) {
     const int r = i / D;
     const int c = i - r * D;
-    dst[r * stride + c] =
-        (r0 + r < n) ? to_f32(src[size_t(r0 + r) * D + c]) : 0.f;
+    dst[r * stride + c] = (r0 + r < n && (!kPad || c < d))
+                              ? to_f32(src[size_t(r0 + r) * dd + c]) : 0.f;
   }
 }
 
@@ -101,14 +111,15 @@ constexpr size_t dkv_smem_floats() {
 
 // K2. Grid: (B*H, ceil(N / kBlockRows)). Warp w owns query rows
 // q0 + w*kRowsPerWarp ... + kRowsPerWarp - 1; lane j scores key k0 + j and
-// accumulates dQ columns j, j + 32, ...
-template <typename T, int D>
+// accumulates dQ columns j, j + 32, ... D is the kernel's head width; with
+// kPad the arrays' own width d is less than D.
+template <typename T, int D, bool kPad>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ o,
                     const T* __restrict__ g, const float* __restrict__ lse,
                     T* __restrict__ dq, float* __restrict__ delta, int n,
-                    float scale) {
+                    int d, float scale) {
   static_assert(D % 32 == 0, "head width must be a multiple of 32");
   constexpr int kStride = D + 1;
   constexpr int kCols = D / 32;
@@ -124,10 +135,11 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = blockIdx.y * kBlockRows;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const size_t base = size_t(bh) * n * D;
+  const int dd = kPad ? d : D;  // the width of the arrays' rows
+  const size_t base = size_t(bh) * n * dd;
 
-  stage<T, D>(qs, q + base, q0, kBlockRows, n, D);
-  stage<T, D>(gs, g + base, q0, kBlockRows, n, D);
+  stage<T, D, kPad>(qs, q + base, q0, kBlockRows, n, D, d);
+  stage<T, D, kPad>(gs, g + base, q0, kBlockRows, n, D, d);
   __syncthreads();
 
   const int row0 = warp * kRowsPerWarp;  // first row of this warp in the tile
@@ -138,8 +150,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int row = q0 + row0 + r;
     float part = 0.f;
     if (row < n) {
-      const T* orow = o + base + size_t(row) * D;
-      for (int c = lane; c < D; c += 32)
+      const T* orow = o + base + size_t(row) * dd;
+      for (int c = lane; c < dd; c += 32)
         part = fmaf(gs[(row0 + r) * D + c], to_f32(orow[c]), part);
     }
     delta_r[r] = warp_sum(part);
@@ -160,8 +172,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int k0 = 0; k0 < n; k0 += kTile) {
     __syncthreads();  // the previous K/V tile is consumed
-    stage<T, D>(ks, k + base, k0, kTile, n, kStride);
-    stage<T, D>(vs, v + base, k0, kTile, n, kStride);
+    stage<T, D, kPad>(ks, k + base, k0, kTile, n, kStride, d);
+    stage<T, D, kPad>(vs, v + base, k0, kTile, n, kStride, d);
     __syncthreads();
 
     // S and dP of this warp's rows against key k0 + lane
@@ -212,23 +224,24 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int r = 0; r < kRowsPerWarp; ++r) {
     const int row = q0 + row0 + r;
     if (row >= n) continue;  // padded query rows are not stored
-    T* dqrow = dq + base + size_t(row) * D;
+    T* dqrow = dq + base + size_t(row) * dd;
 #pragma unroll
     for (int c = 0; c < kCols; ++c)
-      dqrow[lane + 32 * c] = from_f32<T>(acc[r][c] * scale);
+      if (!kPad || lane + 32 * c < d)
+        dqrow[lane + 32 * c] = from_f32<T>(acc[r][c] * scale);
   }
 }
 
 // K3. Grid: (B*H, ceil(N / kBlockRows)). Warp w owns keys
 // k0 + w*kRowsPerWarp ... + kRowsPerWarp - 1; lane i scores query q0 + i
-// and accumulates dK and dV columns i, i + 32, ...
-template <typename T, int D>
+// and accumulates dK and dV columns i, i + 32, ... As K2 for D and kPad.
+template <typename T, int D, bool kPad>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const T* __restrict__ g,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta, T* __restrict__ dk,
-                     T* __restrict__ dv, int n, float scale) {
+                     T* __restrict__ dv, int n, int d, float scale) {
   static_assert(D % 32 == 0, "head width must be a multiple of 32");
   constexpr int kStride = D + 1;
   constexpr int kCols = D / 32;
@@ -247,11 +260,12 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int k0 = blockIdx.y * kBlockRows;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const size_t base = size_t(bh) * n * D;
+  const int dd = kPad ? d : D;  // the width of the arrays' rows
+  const size_t base = size_t(bh) * n * dd;
   const size_t base_row = size_t(bh) * n;
 
-  stage<T, D>(ks, k + base, k0, kBlockRows, n, D);
-  stage<T, D>(vs, v + base, k0, kBlockRows, n, D);
+  stage<T, D, kPad>(ks, k + base, k0, kBlockRows, n, D, d);
+  stage<T, D, kPad>(vs, v + base, k0, kBlockRows, n, D, d);
 
   float dk_acc[kRowsPerWarp][kCols];
   float dv_acc[kRowsPerWarp][kCols];
@@ -268,8 +282,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int q0 = 0; q0 < n; q0 += kTile) {
     __syncthreads();  // K/V are staged; the previous Q/dO tile is consumed
-    stage<T, D>(qs, q + base, q0, kTile, n, kStride);
-    stage<T, D>(gs, g + base, q0, kTile, n, kStride);
+    stage<T, D, kPad>(qs, q + base, q0, kTile, n, kStride, d);
+    stage<T, D, kPad>(gs, g + base, q0, kTile, n, kStride, d);
     if (threadIdx.x < kTile) {
       const int row = q0 + threadIdx.x;
       lse_s[threadIdx.x] = (row < n) ? lse[base_row + row] : 0.f;
@@ -335,10 +349,11 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int r = 0; r < kRowsPerWarp; ++r) {
     const int row = k0 + row0 + r;
     if (row >= n) continue;  // padded keys are not stored
-    T* dkrow = dk + base + size_t(row) * D;
-    T* dvrow = dv + base + size_t(row) * D;
+    T* dkrow = dk + base + size_t(row) * dd;
+    T* dvrow = dv + base + size_t(row) * dd;
 #pragma unroll
     for (int c = 0; c < kCols; ++c) {
+      if (kPad && lane + 32 * c >= d) continue;
       dkrow[lane + 32 * c] = from_f32<T>(dk_acc[r][c] * scale);
       dvrow[lane + 32 * c] = from_f32<T>(dv_acc[r][c]);
     }
@@ -357,6 +372,7 @@ struct Args {
   void* out1;
   int bh;
   int n;
+  int d;
   float scale;
   cudaStream_t stream;
 };
@@ -367,66 +383,79 @@ cudaError_t prepare(Kernel kernel, size_t smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kPad>
 cudaError_t launch_dq(const Args& a) {
   const size_t smem = dq_smem_floats<D>() * sizeof(float);
-  cudaError_t err = prepare(flash_bwd_dq_kernel<T, D>, smem);
+  cudaError_t err = prepare(flash_bwd_dq_kernel<T, D, kPad>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(a.bh, (a.n + kBlockRows - 1) / kBlockRows);
-  flash_bwd_dq_kernel<T, D><<<grid, kThreads, smem, a.stream>>>(
+  flash_bwd_dq_kernel<T, D, kPad><<<grid, kThreads, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.o),
       static_cast<const T*>(a.g), static_cast<const float*>(a.lse),
-      static_cast<T*>(a.out0), static_cast<float*>(a.out1), a.n, a.scale);
+      static_cast<T*>(a.out0), static_cast<float*>(a.out1), a.n, a.d,
+      a.scale);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kPad>
 cudaError_t launch_dkv(const Args& a) {
   const size_t smem = dkv_smem_floats<D>() * sizeof(float);
-  cudaError_t err = prepare(flash_bwd_dkv_kernel<T, D>, smem);
+  cudaError_t err = prepare(flash_bwd_dkv_kernel<T, D, kPad>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(a.bh, (a.n + kBlockRows - 1) / kBlockRows);
-  flash_bwd_dkv_kernel<T, D><<<grid, kThreads, smem, a.stream>>>(
+  flash_bwd_dkv_kernel<T, D, kPad><<<grid, kThreads, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.g),
       static_cast<const float*>(a.lse),
       static_cast<const float*>(a.delta_in), static_cast<T*>(a.out0),
-      static_cast<T*>(a.out1), a.n, a.scale);
+      static_cast<T*>(a.out1), a.n, a.d, a.scale);
   return cudaGetLastError();
 }
 
+template <bool kDq, typename T, int D, bool kPad>
+cudaError_t launch_one(const Args& a) {
+  return kDq ? launch_dq<T, D, kPad>(a) : launch_dkv<T, D, kPad>(a);
+}
+
 template <bool kDq, typename T>
-cudaError_t dispatch_d(const Args& a, int d) {
-  switch (d) {
-    case 32: return kDq ? launch_dq<T, 32>(a) : launch_dkv<T, 32>(a);
-    case 64: return kDq ? launch_dq<T, 64>(a) : launch_dkv<T, 64>(a);
-    case 128: return kDq ? launch_dq<T, 128>(a) : launch_dkv<T, 128>(a);
-    case 256: return kDq ? launch_dq<T, 256>(a) : launch_dkv<T, 256>(a);
-    default: return cudaErrorInvalidValue;
+cudaError_t dispatch_d(const Args& a) {
+  switch (a.d) {
+    case 32: return launch_one<kDq, T, 32, false>(a);
+    case 64: return launch_one<kDq, T, 64, false>(a);
+    case 128: return launch_one<kDq, T, 128, false>(a);
+    case 256: return launch_one<kDq, T, 256, false>(a);
+    default: break;
   }
+  // any other width: the next kernel width, its columns past d padded
+  if (a.d <= 0 || a.d > 288) return cudaErrorInvalidValue;
+  if (a.d < 32) return launch_one<kDq, T, 32, true>(a);
+  if (a.d < 64) return launch_one<kDq, T, 64, true>(a);
+  if (a.d < 128) return launch_one<kDq, T, 128, true>(a);
+  if (a.d < 256) return launch_one<kDq, T, 256, true>(a);
+  return launch_one<kDq, T, 288, true>(a);
 }
 
 template <bool kDq>
-int dispatch(const Args& a, int d, int is_bf16) {
+int dispatch(const Args& a, int is_bf16) {
   if (a.bh <= 0 || a.n <= 0) return int(cudaErrorInvalidValue);
-  return int(is_bf16 ? dispatch_d<kDq, __nv_bfloat16>(a, d)
-                     : dispatch_d<kDq, float>(a, d));
+  return int(is_bf16 ? dispatch_d<kDq, __nv_bfloat16>(a)
+                     : dispatch_d<kDq, float>(a));
 }
 
 }  // namespace
 
-// q, k, v, o, g (dO), dq: contiguous (B*H, N, D) arrays of float32
-// (is_bf16 = 0) or bfloat16 (is_bf16 = 1); lse and delta: contiguous
-// (B*H, N) float32. Writes dq and delta = rowsum(dO * O). Launches on
+// q, k, v, o, g (dO), dq: contiguous (B*H, N, d) arrays, 0 < d <= 288, of
+// float32 (is_bf16 = 0) or bfloat16 (is_bf16 = 1); lse and delta:
+// contiguous (B*H, N) float32. Writes dq and delta = rowsum(dO * O). Launches on
 // `stream` and returns cudaGetLastError() of the launch (0 on success).
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
                             const void* o, const void* g, const void* lse,
                             void* dq, void* delta, int bh, int n, int d,
                             int is_bf16, float scale, void* stream) {
-  const Args a{q, k, v, o, g, lse, nullptr, dq, delta, bh, n, scale,
+  const Args a{q, k, v, o, g, lse, nullptr, dq, delta, bh, n, d, scale,
                static_cast<cudaStream_t>(stream)};
-  return dispatch<true>(a, d, is_bf16);
+  return dispatch<true>(a, is_bf16);
 }
 
 // As flash_bwd_dq, with delta as written by flash_bwd_dq for the same
@@ -436,7 +465,7 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
                              const void* delta, void* dk, void* dv, int bh,
                              int n, int d, int is_bf16, float scale,
                              void* stream) {
-  const Args a{q, k, v, nullptr, g, lse, delta, dk, dv, bh, n, scale,
+  const Args a{q, k, v, nullptr, g, lse, delta, dk, dv, bh, n, d, scale,
                static_cast<cudaStream_t>(stream)};
-  return dispatch<false>(a, d, is_bf16);
+  return dispatch<false>(a, is_bf16);
 }

@@ -31,10 +31,10 @@ import torch
 
 from . import _build
 
-# head widths of the backward kernels; the forward takes any width up to
-# FWD_MAX_HEAD_DIM (it pads to the next of 32, 64, 128, 256 and 288)
+# head widths with kernels of their own; the three kernels take any width
+# up to MAX_HEAD_DIM, padded to the next of HEAD_DIMS and MAX_HEAD_DIM
 HEAD_DIMS = (32, 64, 128, 256)
-FWD_MAX_HEAD_DIM = 288
+MAX_HEAD_DIM = 288
 DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -120,10 +120,10 @@ def _lib(name: str) -> ctypes.CDLL:
     return lib
 
 
-def _check_kernel_inputs(*ts, forward: bool = False):
+def _check_kernel_inputs(*ts):
     """The kernels take contiguous (B, H, N, D) tensors of one shape, one
-    dtype (float32 or bfloat16) and one device; D in HEAD_DIMS, or for the
-    forward kernel any D up to FWD_MAX_HEAD_DIM."""
+    dtype (float32 or bfloat16) and one device, with 0 < D ≤
+    MAX_HEAD_DIM."""
     if len({t.shape for t in ts}) != 1 or ts[0].dim() != 4:
         raise ValueError(f"q, k, v must share one (B, H, N, D) shape, got "
                          f"{[tuple(t.shape) for t in ts]}")
@@ -131,11 +131,9 @@ def _check_kernel_inputs(*ts, forward: bool = False):
         raise TypeError(f"flash kernel takes float32 or bfloat16 q/k/v of "
                         f"one dtype, got {[t.dtype for t in ts]}")
     d = ts[0].shape[-1]
-    if not (0 < d <= FWD_MAX_HEAD_DIM if forward else d in HEAD_DIMS):
-        raise ValueError(
-            f"flash kernel head width must be "
-            f"{f'at most {FWD_MAX_HEAD_DIM}' if forward else HEAD_DIMS}, "
-            f"got {d}")
+    if not 0 < d <= MAX_HEAD_DIM:
+        raise ValueError(f"flash kernel head width must be at most "
+                         f"{MAX_HEAD_DIM}, got {d}")
     if len({t.device for t in ts}) != 1:
         raise ValueError("q, k, v must lie on one device")
     if not all(t.is_contiguous() for t in ts):
@@ -165,7 +163,7 @@ def _launch(kernel: str, t: torch.Tensor, *args) -> None:
 def _flash_fwd(q, k, v, scale):
     if _on_cpu(q, k, v):
         return flash_attention_plain(q, k, v, scale)
-    _check_kernel_inputs(q, k, v, forward=True)
+    _check_kernel_inputs(q, k, v)
     b, h, n, d = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device)

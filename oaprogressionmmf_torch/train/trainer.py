@@ -24,8 +24,11 @@ from ..ops.schedules import make_lr_schedule
 from .state import dict_optimizers, set_lr
 
 
-def make_preprocess_fn(modals, downscale, train: bool):
+def make_preprocess_fn(modals, downscale, train: bool, fast: bool = False):
     """Per-batch device preprocessing for all modalities.
+
+    ``fast`` (the JAX package's bf16 TPU downscale for int8 serving) is
+    accepted and ignored: the port has one downscale.
 
     Eval path, ``preprocess(xs)``: the per-sample min and max are taken
     over all non-batch axes of the raw values, the downscale runs on the

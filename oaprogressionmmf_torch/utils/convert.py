@@ -1,4 +1,4 @@
-"""JAX variables → the port's state dicts.
+"""JAX variables ↔ the port's state dicts.
 
 The JAX package keeps its weights as a ``{"params", "batch_stats"}`` tree
 of arrays; the port's modules carry the reference's torch names. This is
@@ -7,7 +7,13 @@ the port's own copy of the naming logic of the JAX package's
 ``flax_feat_to_torch``, ``export_reference_checkpoint``) and of the
 inverses of its ``models/encoders.py`` converters (torchvision names for
 SqueezeNet, VGG16, DenseNet-161 and Inception v3), producing torch
-tensors. All transforms are host-side numpy.
+tensors; :func:`to_jax_variables` is its copy of the other direction
+(``torch_seq_fe_to_flax``, ``torch_feat_to_flax``,
+``import_reference_checkpoint``) for the ResNet families, so the port
+writes bundles the JAX package reads. :func:`load_quant_acts` and
+:func:`quant_acts_tree` carry the int8 activation statistics between the
+JAX ``quant_acts`` collection and the port's non-persistent site buffers.
+All transforms are host-side numpy.
 """
 
 from __future__ import annotations
@@ -265,3 +271,243 @@ def from_jax_variables(model_name: str, variables: dict) -> dict:
             sd[f"{prefix}.weight"] = _t(params[subtree]["kernel"])
             sd[f"{prefix}.bias"] = _a(params[subtree]["bias"])
     return sd
+
+
+# ---------------------------------------------------------------------------
+# the port's state dict → JAX variables
+# ---------------------------------------------------------------------------
+
+_SEQ_IDX_TO_LAYER = {v: k for k, v in _LAYER_TO_SEQ_IDX.items()}
+
+
+def _np(t) -> np.ndarray:
+    """A tensor or array → a C-contiguous numpy array (bf16 widened to
+    float32)."""
+    if isinstance(t, torch.Tensor):
+        t = t.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        t = t.numpy()
+    return np.asarray(t, order="C")
+
+
+def _t_np(w) -> np.ndarray:
+    """Linear weight (out, in) → dense kernel (in, out)."""
+    return np.ascontiguousarray(_np(w).T)
+
+
+def _conv_np(w) -> np.ndarray:
+    """Conv weight (O, I/g, kh, kw) → kernel (kh, kw, I/g, O)."""
+    return np.ascontiguousarray(np.transpose(_np(w), (2, 3, 1, 0)))
+
+
+def _put(tree: dict, path, value) -> None:
+    node = tree
+    for p in path[:-1]:
+        node = node.setdefault(p, {})
+    node[path[-1]] = value
+
+
+def fe_variables(sd: dict, prefix: str) -> tuple[dict, dict]:
+    """The port's ResNet FE keys under ``prefix`` → (flax params,
+    batch_stats) of the JAX ResNetFE (``torch_seq_fe_to_flax``)."""
+    if f"{prefix}.4.0.conv1.weight" not in sd:
+        raise NotImplementedError(
+            f"to_jax_variables maps ResNet feature extractors only; "
+            f"{prefix!r} is another encoder")
+    params: dict = {}
+    stats: dict = {}
+
+    def bn(path, src):
+        _put(params, path + ("scale",), _np(sd[f"{src}.weight"]))
+        _put(params, path + ("bias",), _np(sd[f"{src}.bias"]))
+        _put(stats, path + ("mean",), _np(sd[f"{src}.running_mean"]))
+        _put(stats, path + ("var",), _np(sd[f"{src}.running_var"]))
+
+    _put(params, ("conv1", "kernel"), _conv_np(sd[f"{prefix}.0.weight"]))
+    bn(("bn1",), f"{prefix}.1")
+    for seq_idx, layer in _SEQ_IDX_TO_LAYER.items():
+        b = 0
+        while f"{prefix}.{seq_idx}.{b}.conv1.weight" in sd:
+            src, dst = f"{prefix}.{seq_idx}.{b}", f"{layer}_{b}"
+            ci = 0
+            while f"{src}.conv{ci + 1}.weight" in sd:
+                _put(params, (dst, f"Conv_{ci}", "kernel"),
+                     _conv_np(sd[f"{src}.conv{ci + 1}.weight"]))
+                bn((dst, f"BatchNorm_{ci}"), f"{src}.bn{ci + 1}")
+                ci += 1
+            if f"{src}.downsample.0.weight" in sd:
+                _put(params, (dst, "downsample_conv", "kernel"),
+                     _conv_np(sd[f"{src}.downsample.0.weight"]))
+                bn((dst, "downsample_bn"), f"{src}.downsample.1")
+            b += 1
+    return params, stats
+
+
+def feat_variables(sd: dict, prefix: str) -> dict:
+    """The port's FeaT keys under ``prefix`` → flax FeaT params
+    (``torch_feat_to_flax``); ``to_qkv`` is split into the q, k and v
+    kernels."""
+    p: dict = {}
+
+    def dense(src):
+        out = {"kernel": _t_np(sd[f"{src}.weight"])}
+        if f"{src}.bias" in sd:
+            out["bias"] = _np(sd[f"{src}.bias"])
+        return out
+
+    def norm(src):
+        return {"scale": _np(sd[f"{src}.weight"]),
+                "bias": _np(sd[f"{src}.bias"])}
+
+    if _join(prefix, "cls_token") in sd:
+        p["cls_token"] = _np(sd[_join(prefix, "cls_token")])
+    p["pos_embedding"] = _np(sd[_join(prefix, "pos_embedding")])
+    p["patch_to_embedding"] = dense(_join(prefix, "patch_to_embedding"))
+    tp = _join(prefix, "transformer")
+    tr: dict = {}
+    d = 0
+    while f"{tp}.prenorm_0_{d}.weight" in sd:
+        tr[f"prenorm_0_{d}"] = norm(f"{tp}.prenorm_0_{d}")
+        tr[f"prenorm_1_{d}"] = norm(f"{tp}.prenorm_1_{d}")
+        w_qkv = _t_np(sd[f"{tp}.attn_{d}.to_qkv.weight"])   # (d, 3d)
+        dim = w_qkv.shape[0]
+        tr[f"attn_{d}"] = {
+            name: {"kernel": np.ascontiguousarray(
+                w_qkv[:, i * dim:(i + 1) * dim])}
+            for i, name in enumerate(("to_q", "to_k", "to_v"))}
+        tr[f"attn_{d}"]["to_out"] = dense(f"{tp}.attn_{d}.to_out.0")
+        tr[f"ff_{d}"] = {"Dense_0": dense(f"{tp}.ff_{d}.net.0"),
+                         "Dense_1": dense(f"{tp}.ff_{d}.net.3")}
+        d += 1
+    p["transformer"] = tr
+    i = 0
+    while f"{_join(prefix, f'mlp_head{i}')}.0.weight" in sd:
+        hp = _join(prefix, f"mlp_head{i}")
+        p[f"mlp_head{i}_norm"] = norm(f"{hp}.0")
+        p[f"mlp_head{i}_dense0"] = dense(f"{hp}.1")
+        p[f"mlp_head{i}_dense1"] = dense(f"{hp}.4")
+        i += 1
+    return p
+
+
+def to_jax_variables(model_name: str, state_dict: dict) -> dict:
+    """The port's state dict (the reference's names) → the JAX
+    ``{"params", "batch_stats"}`` numpy tree of ``model_name``; the inverse
+    of :func:`from_jax_variables` for families with ResNet FEs."""
+    if model_name not in _FAMILY_LAYOUT:
+        raise KeyError(f"{model_name!r} is not ported; ported: "
+                       f"{sorted(_FAMILY_LAYOUT)}")
+    sd = dict(state_dict)
+    params: dict = {}
+    stats: dict = {}
+    for subtree, prefix, kind in _FAMILY_LAYOUT[model_name]:
+        if kind == "fe":
+            params[subtree], stats[subtree] = fe_variables(sd, prefix)
+        elif kind == "feat":
+            params[subtree] = feat_variables(sd, prefix)
+        elif kind == "clin":
+            params[subtree] = {"fe": {
+                "kernel": _t_np(sd[f"{prefix}._fe.0.weight"]),
+                "bias": _np(sd[f"{prefix}._fe.0.bias"])}}
+        elif kind == "dense":
+            params[subtree] = {"kernel": _t_np(sd[f"{prefix}.weight"]),
+                               "bias": _np(sd[f"{prefix}.bias"])}
+    return {"params": params, "batch_stats": stats}
+
+
+# ---------------------------------------------------------------------------
+# int8 activation statistics: JAX quant_acts ↔ the port's site buffers
+# ---------------------------------------------------------------------------
+
+def _fe_site_paths(local: str) -> list:
+    """A ResNet FE site buffer (``amax_in.amax``, ``4.0.amax_1.amax``) →
+    its JAX ``quant_acts`` path."""
+    parts = local.split(".")[:-1]          # drop the buffer name "amax"
+    if len(parts) == 1:
+        return [tuple(parts)]
+    seq, b, site = parts
+    return [(f"{_SEQ_IDX_TO_LAYER[int(seq)]}_{b}", site)]
+
+
+_FEAT_DENSES = {"to_out.0": "to_out", "net.0": "Dense_0",
+                "net.3": "Dense_1"}
+
+
+def _feat_site_paths(local: str) -> list:
+    """A FeaT dense's ``amax`` buffer → its JAX ``quant_acts`` path(s): the
+    fused ``to_qkv`` stands for three denses that see the same input."""
+    parts = local.split(".")[:-1]
+    if parts == ["patch_to_embedding"]:
+        return [("patch_to_embedding", "amax")]
+    if parts[0].startswith("mlp_head"):
+        dense = {"1": "dense0", "4": "dense1"}[parts[1]]
+        return [(f"{parts[0]}_{dense}", "amax")]
+    block = parts[1]                       # transformer.<block>.<dense...>
+    rest = ".".join(parts[2:])
+    if rest == "to_qkv":
+        return [("transformer", block, n, "amax")
+                for n in ("to_q", "to_k", "to_v")]
+    return [("transformer", block, _FEAT_DENSES[rest], "amax")]
+
+
+def _site_buffers(model_name: str, model) -> list:
+    """[(buffer, JAX paths)] of every activation site of ``model``."""
+    if model_name not in _FAMILY_LAYOUT:
+        raise KeyError(f"{model_name!r} is not ported")
+    out = []
+    for subtree, prefix, kind in _FAMILY_LAYOUT[model_name]:
+        if kind not in ("fe", "feat"):
+            continue
+        module = model.get_submodule(prefix)
+        for name, buf in module.named_buffers():
+            if not name.endswith("amax"):
+                continue
+            local = (_fe_site_paths if kind == "fe" else _feat_site_paths)(
+                name)
+            out.append((buf, [(subtree,) + p for p in local]))
+    return out
+
+
+def _leaves(tree, path=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, path + (k,))
+    else:
+        yield path, tree
+
+
+def load_quant_acts(model_name: str, model, quant_acts: dict) -> None:
+    """Copy a JAX ``quant_acts`` tree into ``model``'s site buffers,
+    strictly: every site gets a value and every value a site. The three
+    statistics of a fused ``to_qkv`` must be equal, as JAX's calibration
+    records them."""
+    given = {p: v for p, v in _leaves(quant_acts)}
+    used = set()
+    with torch.no_grad():
+        for buf, paths in _site_buffers(model_name, model):
+            missing = [p for p in paths if p not in given]
+            if missing:
+                raise KeyError(f"quant_acts lacks {'/'.join(missing[0])}")
+            vals = {float(np.asarray(given[p], np.float32)) for p in paths}
+            if len(vals) != 1:
+                raise ValueError(f"quant_acts {'/'.join(paths[0][:-2])}: "
+                                 f"to_q, to_k and to_v differ ({vals}); the "
+                                 f"port's fused to_qkv takes one statistic")
+            buf.fill_(vals.pop())
+            used.update(paths)
+    extra = sorted(set(given) - used)
+    if extra:
+        raise KeyError(f"quant_acts has {len(extra)} entries the model has "
+                       f"no site for, e.g. {'/'.join(extra[0])}")
+
+
+def quant_acts_tree(model_name: str, model) -> dict:
+    """``model``'s site buffers → the JAX ``quant_acts`` tree (0-d float32
+    arrays)."""
+    tree: dict = {}
+    for buf, paths in _site_buffers(model_name, model):
+        for p in paths:
+            _put(tree, p, np.asarray(buf.detach().cpu().float().item(),
+                                     np.float32))
+    return tree

@@ -148,9 +148,9 @@ def test_grayscale_equals_rgb_repeat():
 
 def test_forward_kernel_takes_the_densenet_head_width():
     """A FeaT over DenseNet-161's 2208-wide tokens has 8 heads of 276: the
-    forward kernel takes any head width up to 288 (the JAX kernel pads D to
-    128 lanes), the backward kernels only their four widths; the plain
-    attention agrees with the JAX kernel at that width."""
+    forward kernel, like the two backward kernels, takes any head width up
+    to 288 (the JAX kernel pads D to 128 lanes); the plain attention agrees
+    with the JAX kernel at that width."""
     from oaprogressionmmf_tpu.ops.flash_attention import \
         flash_attention as jax_flash_attention
     port = importlib.import_module(
@@ -160,12 +160,10 @@ def test_forward_kernel_takes_the_densenet_head_width():
     q, k, v = (rng.randn(1, 2, 10, 276).astype(np.float32)
                for _ in range(3))
     tq, tk, tv = (torch.from_numpy(t) for t in (q, k, v))
-    port._check_kernel_inputs(tq, tk, tv, forward=True)
-    with pytest.raises(ValueError, match="head width"):
-        port._check_kernel_inputs(tq, tk, tv)
+    port._check_kernel_inputs(tq, tk, tv)
     wide = torch.zeros(1, 2, 10, 289)
     with pytest.raises(ValueError, match="at most 288"):
-        port._check_kernel_inputs(wide, wide, wide, forward=True)
+        port._check_kernel_inputs(wide, wide, wide)
     scale = 2208 ** -0.5
     want = np.asarray(jax_flash_attention(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), scale=scale,

@@ -67,8 +67,12 @@ def test_feat_matches_flax(with_cls, mode, num_outputs):
 
 
 def test_feat_refuses_quant_and_unknown_attn_impl():
-    with pytest.raises(NotImplementedError, match="item 9"):
-        FeaT(**KW, quant="int8")
+    """int8 serving is ported: the int8 and calibration modes build, an
+    unknown quant mode is refused, as is an unknown attn_impl."""
+    for mode in ("int8", "calib", "calib:p99.9"):
+        FeaT(**KW, quant=mode)
+    with pytest.raises(ValueError, match="quant="):
+        FeaT(**KW, quant="int4")
     with pytest.raises(ValueError, match="attn_impl"):
         FeaT(**KW, attn_impl="xla")
 

@@ -133,6 +133,8 @@ def test_tpu_fe_knobs_are_accepted_and_quant_is_refused(knob):
     cfg = copy.deepcopy(FLAGSHIP_SMALL)
     cfg["fe"]["xr"][knob] = True
     dict_models[NAME](cfg)
-    cfg["fe"]["mr"]["quant"] = "int8"
-    with pytest.raises(NotImplementedError, match="item 9"):
+    cfg["fe"]["mr"]["quant"] = "int8"       # int8 serving is ported
+    assert dict_models[NAME](cfg)._fe1.quant == "int8"
+    cfg["fe"]["mr"]["quant"] = "int4"       # an unknown mode is refused
+    with pytest.raises(ValueError, match="quant="):
         dict_models[NAME](cfg)

@@ -21,7 +21,8 @@ jax_flash_mod = importlib.import_module(
 port = importlib.import_module("oaprogressionmmf_torch.ops.flash_attention")
 
 ATOL = {torch.float32: 5e-4, torch.bfloat16: 4e-2}
-SHAPES = [(25, 32), (92, 32), (200, 64), (92, 256)]  # (200, 64): 2 blocks
+# (200, 64): 2 blocks; 276: DenseNet-161 FeaT heads, padded to 288
+SHAPES = [(25, 32), (92, 32), (200, 64), (92, 256), (25, 276)]
 
 
 def _inputs(b, h, n, d, seed):
@@ -119,3 +120,14 @@ def test_bwd_refuses_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="contiguous"):
         t = torch.zeros(1, 8, 2, 64).transpose(1, 2)
         port._check_kernel_inputs(q, q, q, q, t)
+
+
+@pytest.mark.parametrize("d", [48, 276])
+def test_kernel_checks_take_any_head_width_up_to_288(d):
+    """K2 and K3 take any head width up to 288, as K1 does: a width that
+    is not native runs in the next kernel width with its columns padded."""
+    q = torch.zeros(1, 2, 8, d)
+    port._check_kernel_inputs(q, q, q, q, q)
+    wide = torch.zeros(1, 2, 8, 289)
+    with pytest.raises(ValueError, match="at most 288"):
+        port._check_kernel_inputs(wide, wide, wide, wide, wide)

@@ -1,5 +1,7 @@
-"""The port stands alone: it imports neither JAX nor the JAX package, and
-its entry points refuse to fall back to the CPU unless asked."""
+"""The port stands alone: it imports neither JAX nor the JAX package, nor
+flax or msgpack (the machine with the card has neither; the port reads and
+writes bundles itself), and its entry points refuse to fall back to the
+CPU unless asked."""
 
 import hashlib
 import pkgutil
@@ -37,13 +39,15 @@ def test_the_module_walk_finds_the_whole_package():
 def test_port_imports_without_jax_or_the_jax_package():
     code = (
         "import importlib, sys\n"
-        "for m in ('jax', 'jaxlib', 'flax', 'oaprogressionmmf_tpu'):\n"
+        "for m in ('jax', 'jaxlib', 'flax', 'msgpack',\n"
+        "          'oaprogressionmmf_tpu'):\n"
         "    sys.modules[m] = None\n"
         "before = set(sys.modules)\n"
         f"for m in {PORT_MODULES!r}:\n"
         "    importlib.import_module(m)\n"
         "leaked = [m for m in set(sys.modules) - before\n"
-        "          if m.startswith(('jax', 'flax', 'oaprogressionmmf_tpu'))]\n"
+        "          if m.startswith(('jax', 'flax', 'msgpack',\n"
+        "                           'oaprogressionmmf_tpu'))]\n"
         "assert not leaked, leaked\n"
         "print('ok')\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -58,8 +62,34 @@ def test_port_sources_name_no_jax_module():
             code = line.split("#")[0]
             assert not code.lstrip().startswith(
                 ("import jax", "from jax", "import flax", "from flax",
+                 "import msgpack", "from msgpack",
                  "from oaprogressionmmf_tpu", "import oaprogressionmmf_tpu")
             ), f"{path}: {line}"
+
+
+def test_bundle_codec_runs_without_msgpack_or_flax(tmp_path):
+    """The port's msgpack reader and writer round-trip a bundle payload in
+    a process where msgpack and flax cannot be imported."""
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'jaxlib', 'flax', 'msgpack'):\n"
+        "    sys.modules[m] = None\n"
+        "import numpy as np, torch\n"
+        "from oaprogressionmmf_torch.utils import msgpack_io\n"
+        "tree = {'params': {'w': np.arange(6, dtype=np.float32)},\n"
+        "        'bf': torch.ones(3, dtype=torch.bfloat16),\n"
+        "        'quant_acts': {'amax': np.float32(2.0)}}\n"
+        f"path = {str(tmp_path / 'b.msgpack')!r}\n"
+        "msgpack_io.write_msgpack(path, tree)\n"
+        "got = msgpack_io.read_msgpack(path)\n"
+        "assert (got['params']['w'] == tree['params']['w']).all()\n"
+        "assert torch.equal(got['bf'], tree['bf'])\n"
+        "assert got['quant_acts']['amax'] == 2.0\n"
+        "print('ok')\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("ok")
 
 
 def test_entry_points_raise_without_a_gpu_unless_cpu_is_asked(monkeypatch):
