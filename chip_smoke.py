@@ -65,7 +65,9 @@ Phases (any failure exits non-zero; nothing is caught):
      plain PyTorch versions on the same inputs and the same (O, lse) from
      K1, at the training step's shapes (B, H) = (8, 8), D = 256, N in
      {25, 64, 92, 2432}, and D in {32, 48, 64, 128, 276} for correctness
-     (48 and 276, DenseNet-161's heads, run padded; 276 also timed); times
+     (48 and 276, DenseNet-161's heads, run padded; 276 also timed); bf16
+     (the tensor-core route) also at N = 65 and 129, whose last 64-row
+     tile holds one row, and float32 (the CUDA-core route) at 5e-4; times
      of each kernel, the plain versions, the backward of
      F.scaled_dot_product_attention on a retained graph (library_ms, a
      yardstick the port never calls) and the bound;
@@ -146,6 +148,8 @@ FLASH_D = 256
 FLASH_SCALE = 2048 ** -0.5          # full-width scale, emb_dim 2048
 MAIN_PATH_N = {64: 4, 25: 4, 92: 4}  # tokens → launches per forward
 CHECK_N = (25, 64, 92, 2432)
+# bf16 K2/K3 also at lengths that leave ragged 64-row tiles (correctness)
+BWD_RAGGED_N = (65, 129)
 # ~0.1 s of device-side sleep: longer than the host takes to queue a
 # timing loop, so the loop's launches run back to back on the card
 SLEEP_CYCLES = 200_000_000
@@ -166,11 +170,28 @@ CENTRED_RTOL = 0.25
 BWD_BH = (8, 8)
 # |dX − dX_plain| bars: float32 5e-4, the JAX package's gradient bar
 # (tests/test_ops_attention_t2.py:47); bf16 min(4e-2, 2e-2·max|plain|):
-# 4e-2 is the JAX bf16 gradient bar (:50), and the kernels and the plain
-# version differ only by float32 reassociation before the final bf16
-# rounding (2^-8 of a value), so 2e-2 of the largest grad is ample
+# 4e-2 is the JAX bf16 gradient bar (:50). In bf16 both the kernels and
+# the plain versions round P and dS to bf16 before the products that use
+# them (dS·K, Pᵀ·dO, dSᵀ·Q: the tensor cores' operands), so they differ
+# only by float32 reassociation, a P or dS that the two round to
+# neighbouring bf16 values (2^-8 of one term), and the final bf16 rounding
+# (2^-8 of a value): 2e-2 of the largest grad is ample
 BWD_TOL = {torch.float32: {"abs": 5e-4, "rel": None},
            torch.bfloat16: {"abs": 4e-2, "rel": 2e-2}}
+
+# the two routes of K2 and K3, dispatched by type (csrc/flash_bwd.cu)
+BWD_DESIGN = {
+    kern: {"bfloat16": f"tensor cores: wgmma m64nNk16 (bf16 in, float32 "
+                       f"accumulators), 64 {rows} a block, the other side "
+                       "in 64-row tiles (32 at D = 288, and at D = 256 when "
+                       "N <= 32) through a two-stage cp.async ring; "
+                       f"{products}",
+           "float32": "CUDA cores: float32 FMAs (no TF32), 16 rows a block, "
+                      "32-row tiles staged as float32"}
+    for kern, rows, products in (
+        ("dq", "query rows", "S, dP and dS·K, dS in bf16 from registers"),
+        ("dkv", "keys", "Sᵀ, dPᵀ, Pᵀ·dO and dSᵀ·Q, Pᵀ and dSᵀ in bf16 from "
+                        "registers"))}
 
 # K4, the fused stem: conv outputs (N, C, H, W) of the flagship's three
 # stems at batch 4, the JAX script's design point and a DenseNet-161 stem
@@ -319,7 +340,10 @@ def phase_build():
     for name, (path, report) in zip(sources, results):
         log(f"[build] {name} -> {path.relative_to(REPO)}")
         for line in report.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
+            if "Compiling entry function" in line:
+                log(f"[build]  {line.split(chr(39))[1]}")
+            elif ("registers" in line or "spill" in line or "smem" in line
+                  or "Performance" in line):
                 log(f"[build]   {line.strip()}")
 
 
@@ -492,11 +516,14 @@ def phase_flash_bwd() -> dict:
                       "d276": {"n": PAD_N, "d": PAD_D}}
                for kern in ("dq", "dkv")}
     # the other head widths, for correctness: 48 and 276 (a DenseNet-161
-    # FeaT's 2208 / 8, at its full-width scale) run padded to 64 and 288
+    # FeaT's 2208 / 8, at its full-width scale) run padded to 64 and 288;
+    # bf16 also where the last 64-row tile holds one row
     for d in (32, 48, 64, 128, PAD_D):
         scale = (8 * d) ** -0.5 if d == PAD_D else d ** -0.5
         for dtype in (torch.float32, torch.bfloat16):
-            for n in (92, 130):
+            lengths = (92, 130) + (BWD_RAGGED_N if dtype == torch.bfloat16
+                                   else ())
+            for n in lengths:
                 errs = check_flash_bwd(*inputs(n, d, dtype), scale)
                 if d != PAD_D:
                     continue
@@ -520,6 +547,8 @@ def phase_flash_bwd() -> dict:
         log(f"[flash_bwd] bf16 {kern} at D={PAD_D} (padded to 288), N={PAD_N}"
             f" (B,H)={(b, h)}: kernel {rec['ms']:.4f} ms, plain "
             f"{rec['plain_ms']:.4f} ms")
+    for n in BWD_RAGGED_N:
+        check_flash_bwd(*inputs(n, FLASH_D, torch.bfloat16), FLASH_SCALE)
     for dtype in (torch.float32, torch.bfloat16):
         for n in CHECK_N:
             q, k, v, do = inputs(n, FLASH_D, dtype)
@@ -996,8 +1025,7 @@ def compare_dtypes(got: dict, want: dict, segments: dict) -> None:
 KERNEL_CATEGORIES = (
     ("fused stem (bn_relu_pool)", ("bn_relu_pool",)),
     ("int8 conv (K5)", ("int8_conv_kernel",)),
-    ("attention backward (flash_bwd)", ("flash_bwd_dq_kernel",
-                                        "flash_bwd_dkv_kernel")),
+    ("attention backward (flash_bwd)", ("flash_bwd_dq", "flash_bwd_dkv")),
     ("attention (flash_fwd)", ("flash_fwd",)),
     ("copies", ("memcpy", "memset")),
     ("resize", ("upsample",)),
@@ -1582,6 +1610,7 @@ def main() -> int:
         rec = bwd[kern]
         kernels.append(dict(
             name=f"flash_bwd_{kern}", route="cuda", source=src + "flash_bwd.cu",
+            design=BWD_DESIGN[kern],
             replaces=f"oaprogressionmmf_tpu/ops/flash_attention.py:{line}",
             launches=count, max_abs_err=rec["max_abs_err"], ms=rec["ms"],
             plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],

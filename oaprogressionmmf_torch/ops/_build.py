@@ -3,8 +3,9 @@
 Each ``ops/csrc/<name>.cu`` exports a plain C interface. At first use it
 is compiled for Hopper (``sm_90a``) into ``build/`` at the root of the
 checkout and loaded with ctypes. The library's file name carries a hash
-of its source and of the nvcc flags, so an edited source or a changed
-flag is rebuilt and a stale library is never loaded. Nothing here runs
+of its source, of the port's headers (``csrc/*.cuh``) and of the nvcc
+flags, so an edited source or header or a changed flag is rebuilt and a
+stale library is never loaded. Nothing here runs
 when the package is imported.
 """
 
@@ -39,7 +40,9 @@ def build(name: str) -> tuple[Path, str]:
     registers, shared memory and spills per kernel; empty when the
     library was already built)."""
     src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes()
+    # the port's own headers too: an edited header rebuilds what includes it
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC_DIR.glob("*.cuh")))
+    digest = hashlib.sha1(src.read_bytes() + headers
                           + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     out = BUILD_DIR / f"lib{name}-{digest}.so"
     if out.exists():

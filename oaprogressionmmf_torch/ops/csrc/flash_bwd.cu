@@ -2,7 +2,7 @@
 // loaded through ctypes (ops/_build.py, ops/flash_attention.py).
 //
 // Two kernels, launched in this order on one stream:
-//   K2 flash_bwd_dq_kernel  replaces
+//   K2 (dq)  replaces
 //      oaprogressionmmf_tpu/ops/flash_attention.py::_flash_bwd_dq_kernel
 //      (pallas_call at :255). For each query row i it computes
 //        delta_i = sum_d dO_i,d O_i,d                (once per row)
@@ -10,67 +10,86 @@
 //        dS_ij   = P_ij (dO_i.v_j - delta_i)
 //        dQ_i    = scale * sum_j dS_ij k_j
 //      and writes dQ in the input type and delta as (B*H, N) float32.
-//   K3 flash_bwd_dkv_kernel replaces
+//   K3 (dkv) replaces
 //      oaprogressionmmf_tpu/ops/flash_attention.py::_flash_bwd_dkv_kernel
 //      (pallas_call at :270). For each key j it computes
 //        dV_j = sum_i P_ij dO_i,   dK_j = scale * sum_i dS_ij q_i
 //      recomputing P from lse and reading K2's delta.
 // Each output row is owned by one block and written once, so the grads are
 // deterministic and no atomics are needed. lse is the forward's (B*H, N)
-// float32 array (flash_fwd.cu), not the TPU's 128-lane broadcast.
-//
-// Any head width d up to 288 runs, as in the forward kernel (the TPU
-// backward, _flash_bwd, pads D to 128 lanes). The widths 32, 64, 128 and
-// 256 have kernels of their own; any other runs in the kernel of the next
-// width of 32, 64, 128, 256 and 288 (kPad), whose columns at or past d are
-// staged as zeros and never stored, so they add exactly zero.
+// float32 array (flash_fwd.cu), not the TPU's 128-lane broadcast. Any head
+// width d up to 288 runs (the TPU backward pads D to 128 lanes); columns at
+// or past d are staged as zeros and never stored, so they add exactly zero.
 // DenseNet-161's 2208-wide tokens in 8 heads give d = 276.
 //
-// What bounds it on an H100. At the flagship's training shapes (B*H = 64,
-// D = 256, N in {25, 64, 92}) one backward moves ~4-24 MB and does at most
-// ~1.4 GFLOP, so the bound from the card's memory rate is a few
-// microseconds and what matters is getting enough blocks in flight: 16
-// rows per block (query rows in K2, keys in K3) gives 128-384 blocks for
-// 132 SMs where the TPU's 128-row blocks would give 64. The other side is
-// visited in 32-row tiles by a loop inside the block (the TPU's sequential
-// grid axis), staged in shared memory as float32 with rows padded by one
-// float so that lane j reads its own row without bank conflicts.
+// The two types take two designs, dispatched by type:
 //
-// This first version multiplies on the CUDA cores with float32 FMAs: the
-// float32 path stays full float32 (no TF32) for the 5e-4 gradient bar, and
-// bf16 operands are widened to float32. As in the TPU kernels, P, dP and dS
-// stay float32 (no rounding to bf16) and only the grads are rounded to the
-// input type. Every FMA reads an operand from shared memory, so
-// shared-memory bandwidth, not the tensor cores, bounds it at long
-// sequences; wgmma and TMA are the next step.
+// bfloat16 (the training step, under autocast): the tensor cores.
+//   What bounds it on an H100: K2 does 3 and K3 4 products of N x N x D, so
+//   at the with_gap=false length (B*H = 64, N = 2432, D = 256) they need
+//   5.8e11 and 7.8e11 operations, 0.59 and 0.78 ms at 989 TFLOP/s, against
+//   ~0.5 ms for their bytes: the operations bound them. At the flagship's
+//   N (25, 64, 92) the work is a few microseconds of either, and the time
+//   goes to each block's load latency: the grid is 64-128 blocks.
+//   The design. A block owns 64 rows (wgmma's M: query rows in K2, keys in
+//   K3), grid (B*H, ceil(N / 64), column groups). Its own rows (Q and dO in
+//   K2, K and V in K3) stay in shared memory in bf16 in the 128-byte
+//   swizzled layout of hopper.cuh; the other side streams through in tiles
+//   of 64 rows (32 at D = 288, and at D = 256 when N <= 32) through a
+//   two-stage ring of 16-byte cp.async copies: the next tile's copies are
+//   issued right after this tile's first products, and fly while they
+//   run. Per tile, with wgmma (bf16 in, float32 accumulators):
+//     K3: S^T = K Q^T and dP^T = V dO^T (both operands K-major in shared
+//         memory); in registers P^T = exp(scale S^T - lse), zero at query
+//         rows >= N, and dS^T = P^T (dP^T - delta); both rounded to bf16
+//         become the A operand, from registers, of dV += P^T dO and
+//         dK += dS^T Q, whose B (the dO and Q tiles) is read transposed
+//         (MN-major) through the descriptor.
+//     K2: S = Q K^T and dP = dO V^T; P = exp(scale S - lse), zero at keys
+//         >= N; dS = P (dP - delta) rounded to bf16 is the A operand of
+//         dQ += dS K.
+//   dQ, dK and dV are scaled and rounded to bf16 once, at the store. The
+//   plain versions (ops/flash_attention.py) round P and dS to the input
+//   type at the same places.
+//   Registers: a warpgroup owns at most 128 output columns, so at D = 256 a
+//   block runs two consumer warpgroups, each holding 64 x 128 float32 of
+//   dK and dV (128 registers a thread) and recomputing S^T and dP^T (64
+//   more) for itself: 1.5x K3's products (1.67x K2's) and no exchange
+//   through shared memory. At D = 288 the third group of columns (32 wide)
+//   goes to a third block (grid z), each of one warpgroup. ptxas (CUDA
+//   12.9, -O3) at D = 256: 240 registers a thread in K3 and 182 in K2 (206
+//   and 156 with 32-row tiles); no spills at any width. A warpgroup waits
+//   for each tile's dV/dK (dQ) products before the next tile: carrying them
+//   over the next tile's S and dP made ptxas serialize every wgmma.
+//   Shared memory at D = 256: K3 holds K and V (64 KB) and two stages of Q
+//   and dO (128 KB), 193 KB with lse and delta; K2 the same sizes. At
+//   D = 288 the five 64-wide column atoms take 80 KB for the block's rows
+//   and 80 KB for two stages of 32-row tiles.
+//   Copies: 16-byte cp.async where a row chunk is 16-byte aligned (every
+//   width that is a multiple of 8); a d = 276 row is 552 bytes, so every
+//   other row is only 8-byte aligned and loads as two 8-byte cp.async;
+//   other widths load element by element. TMA would need 16-byte strides.
+//
+// float32: CUDA-core kernels, full float32 FMAs (no TF32). They
+//   exist for the 5e-4 gradient bar of the tests and of the float32 step
+//   check, which TF32 tensor cores would not meet. 16 rows per block
+//   (query rows in K2, keys in K3); the other side in 32-row tiles staged
+//   as float32 in shared memory, rows padded by one float against bank
+//   conflicts. The widths 32, 64, 128 and 256 have kernels of their own;
+//   any other runs in the kernel of the next of 32, 64, 128, 256 and 288.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kRowsPerWarp = 4;
-constexpr int kBlockRows = kWarps * kRowsPerWarp;  // rows a block owns
-constexpr int kTile = 32;                          // other side: one per lane
-constexpr int kThreads = kWarps * 32;
+// ---------------------------------------------------------------- float32
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
+namespace f32 {
 
 __device__ __forceinline__ float warp_sum(float x) {
   for (int off = 16; off > 0; off >>= 1)
@@ -78,11 +97,17 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
+constexpr int kWarps = 4;
+constexpr int kRowsPerWarp = 4;
+constexpr int kBlockRows = kWarps * kRowsPerWarp;  // rows a block owns
+constexpr int kTile = 32;                          // other side: one per lane
+constexpr int kThreads = kWarps * 32;
+
 // Stage rows r0 .. r0 + rows - 1 of a (n, dd) array as D float32 columns
 // with row stride `stride`; rows at or past n are zero, and with kPad the
 // columns at or past the arrays' own width d (dd = d) too.
-template <typename T, int D, bool kPad>
-__device__ __forceinline__ void stage(float* dst, const T* __restrict__ src,
+template <int D, bool kPad>
+__device__ __forceinline__ void stage(float* dst, const float* __restrict__ src,
                                       int r0, int rows, int n, int stride,
                                       int d) {
   const int dd = kPad ? d : D;
@@ -90,7 +115,7 @@ __device__ __forceinline__ void stage(float* dst, const T* __restrict__ src,
     const int r = i / D;
     const int c = i - r * D;
     dst[r * stride + c] = (r0 + r < n && (!kPad || c < d))
-                              ? to_f32(src[size_t(r0 + r) * dd + c]) : 0.f;
+                              ? src[size_t(r0 + r) * dd + c] : 0.f;
   }
 }
 
@@ -113,12 +138,12 @@ constexpr size_t dkv_smem_floats() {
 // q0 + w*kRowsPerWarp ... + kRowsPerWarp - 1; lane j scores key k0 + j and
 // accumulates dQ columns j, j + 32, ... D is the kernel's head width; with
 // kPad the arrays' own width d is less than D.
-template <typename T, int D, bool kPad>
+template <int D, bool kPad>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ o,
-                    const T* __restrict__ g, const float* __restrict__ lse,
-                    T* __restrict__ dq, float* __restrict__ delta, int n,
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ o,
+                    const float* __restrict__ g, const float* __restrict__ lse,
+                    float* __restrict__ dq, float* __restrict__ delta, int n,
                     int d, float scale) {
   static_assert(D % 32 == 0, "head width must be a multiple of 32");
   constexpr int kStride = D + 1;
@@ -138,8 +163,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int dd = kPad ? d : D;  // the width of the arrays' rows
   const size_t base = size_t(bh) * n * dd;
 
-  stage<T, D, kPad>(qs, q + base, q0, kBlockRows, n, D, d);
-  stage<T, D, kPad>(gs, g + base, q0, kBlockRows, n, D, d);
+  stage<D, kPad>(qs, q + base, q0, kBlockRows, n, D, d);
+  stage<D, kPad>(gs, g + base, q0, kBlockRows, n, D, d);
   __syncthreads();
 
   const int row0 = warp * kRowsPerWarp;  // first row of this warp in the tile
@@ -150,9 +175,9 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int row = q0 + row0 + r;
     float part = 0.f;
     if (row < n) {
-      const T* orow = o + base + size_t(row) * dd;
+      const float* orow = o + base + size_t(row) * dd;
       for (int c = lane; c < dd; c += 32)
-        part = fmaf(gs[(row0 + r) * D + c], to_f32(orow[c]), part);
+        part = fmaf(gs[(row0 + r) * D + c], orow[c], part);
     }
     delta_r[r] = warp_sum(part);
     // padded rows: lse 0 and delta 0 keep them finite; they are not stored
@@ -172,8 +197,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int k0 = 0; k0 < n; k0 += kTile) {
     __syncthreads();  // the previous K/V tile is consumed
-    stage<T, D, kPad>(ks, k + base, k0, kTile, n, kStride, d);
-    stage<T, D, kPad>(vs, v + base, k0, kTile, n, kStride, d);
+    stage<D, kPad>(ks, k + base, k0, kTile, n, kStride, d);
+    stage<D, kPad>(vs, v + base, k0, kTile, n, kStride, d);
     __syncthreads();
 
     // S and dP of this warp's rows against key k0 + lane
@@ -224,24 +249,23 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int r = 0; r < kRowsPerWarp; ++r) {
     const int row = q0 + row0 + r;
     if (row >= n) continue;  // padded query rows are not stored
-    T* dqrow = dq + base + size_t(row) * dd;
+    float* dqrow = dq + base + size_t(row) * dd;
 #pragma unroll
     for (int c = 0; c < kCols; ++c)
-      if (!kPad || lane + 32 * c < d)
-        dqrow[lane + 32 * c] = from_f32<T>(acc[r][c] * scale);
+      if (!kPad || lane + 32 * c < d) dqrow[lane + 32 * c] = acc[r][c] * scale;
   }
 }
 
 // K3. Grid: (B*H, ceil(N / kBlockRows)). Warp w owns keys
 // k0 + w*kRowsPerWarp ... + kRowsPerWarp - 1; lane i scores query q0 + i
 // and accumulates dK and dV columns i, i + 32, ... As K2 for D and kPad.
-template <typename T, int D, bool kPad>
+template <int D, bool kPad>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ g,
+flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const float* __restrict__ g,
                      const float* __restrict__ lse,
-                     const float* __restrict__ delta, T* __restrict__ dk,
-                     T* __restrict__ dv, int n, int d, float scale) {
+                     const float* __restrict__ delta, float* __restrict__ dk,
+                     float* __restrict__ dv, int n, int d, float scale) {
   static_assert(D % 32 == 0, "head width must be a multiple of 32");
   constexpr int kStride = D + 1;
   constexpr int kCols = D / 32;
@@ -264,8 +288,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const size_t base = size_t(bh) * n * dd;
   const size_t base_row = size_t(bh) * n;
 
-  stage<T, D, kPad>(ks, k + base, k0, kBlockRows, n, D, d);
-  stage<T, D, kPad>(vs, v + base, k0, kBlockRows, n, D, d);
+  stage<D, kPad>(ks, k + base, k0, kBlockRows, n, D, d);
+  stage<D, kPad>(vs, v + base, k0, kBlockRows, n, D, d);
 
   float dk_acc[kRowsPerWarp][kCols];
   float dv_acc[kRowsPerWarp][kCols];
@@ -282,8 +306,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int q0 = 0; q0 < n; q0 += kTile) {
     __syncthreads();  // K/V are staged; the previous Q/dO tile is consumed
-    stage<T, D, kPad>(qs, q + base, q0, kTile, n, kStride, d);
-    stage<T, D, kPad>(gs, g + base, q0, kTile, n, kStride, d);
+    stage<D, kPad>(qs, q + base, q0, kTile, n, kStride, d);
+    stage<D, kPad>(gs, g + base, q0, kTile, n, kStride, d);
     if (threadIdx.x < kTile) {
       const int row = q0 + threadIdx.x;
       lse_s[threadIdx.x] = (row < n) ? lse[base_row + row] : 0.f;
@@ -349,16 +373,537 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int r = 0; r < kRowsPerWarp; ++r) {
     const int row = k0 + row0 + r;
     if (row >= n) continue;  // padded keys are not stored
-    T* dkrow = dk + base + size_t(row) * dd;
-    T* dvrow = dv + base + size_t(row) * dd;
+    float* dkrow = dk + base + size_t(row) * dd;
+    float* dvrow = dv + base + size_t(row) * dd;
 #pragma unroll
     for (int c = 0; c < kCols; ++c) {
       if (kPad && lane + 32 * c >= d) continue;
-      dkrow[lane + 32 * c] = from_f32<T>(dk_acc[r][c] * scale);
-      dvrow[lane + 32 * c] = from_f32<T>(dv_acc[r][c]);
+      dkrow[lane + 32 * c] = dk_acc[r][c] * scale;
+      dvrow[lane + 32 * c] = dv_acc[r][c];
     }
   }
 }
+
+}  // namespace f32
+
+// ---------------------------------------------------------------- bfloat16
+
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+using namespace hopper;
+
+constexpr int kRows = 64;   // rows a block owns: wgmma's M
+constexpr int kCols = 128;  // output columns a warpgroup owns at most
+constexpr float kLog2e = 1.4426950408889634f;
+
+// bytes of a tile of `rows` rows at kernel width `d`: 64-wide column atoms
+__host__ __device__ constexpr int tile_bytes(int rows, int d) {
+  return rows * 128 * ((d + 63) / 64);
+}
+
+// The kernels' shared memory: the block's own rows (two arrays), two
+// stages of two arrays of the other side, `floats` float32 values, and
+// slack to align the start to 1024 bytes.
+template <int kD, int kTile>
+constexpr size_t smem_bytes(int floats) {
+  return 2 * size_t(tile_bytes(kRows, kD)) + 4 * size_t(tile_bytes(kTile, kD)) +
+         4 * size_t(floats) + 1024;
+}
+
+__device__ __forceinline__ void st_zero16(uint32_t dst) {
+  asm volatile("st.shared.v4.u32 [%0], {%1, %1, %1, %1};\n"
+               :: "r"(dst), "r"(0) : "memory");
+}
+
+// One 16-byte chunk of a tile: the first `valid` (at most 8) values from
+// `src`, zeros after them. The widest copy the source's alignment allows.
+__device__ __forceinline__ void load_chunk(uint32_t dst,
+                                           const bf16* __restrict__ src,
+                                           int valid) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(src);
+  if (valid <= 0) {
+    st_zero16(dst);
+  } else if ((a & 15) == 0) {
+    cp_async<16>(dst, src, 2 * valid);
+  } else if ((a & 7) == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int v = min(max(valid - 4 * h, 0), 4);
+      cp_async<8>(dst + 8 * h, v ? src + 4 * h : src, 2 * v);
+    }
+  } else {  // element by element
+    uint32_t w[4];
+#pragma unroll
+    for (int h = 0; h < 4; ++h) {
+      const uint16_t lo = 2 * h < valid ? __bfloat16_as_ushort(src[2 * h]) : 0;
+      const uint16_t hi =
+          2 * h + 1 < valid ? __bfloat16_as_ushort(src[2 * h + 1]) : 0;
+      w[h] = uint32_t(lo) | (uint32_t(hi) << 16);
+    }
+    asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n"
+                 :: "r"(dst), "r"(w[0]), "r"(w[1]), "r"(w[2]), "r"(w[3])
+                 : "memory");
+  }
+}
+
+// Rows r0 .. r0 + kTileRows - 1 of one head's (n, d) array into a tile of
+// kernel width kD; rows at or past n and columns at or past d are zeros.
+// `aligned`: d is a multiple of 8 and the arrays 16-byte aligned, so every
+// chunk is one 16-byte copy (or zero fill) with no test of its alignment
+// (at every kernel width but 288, whose 36 chunks a row do not divide the
+// block).
+template <int kTileRows, int kD, int kThreads>
+__device__ __forceinline__ void load_tile(uint32_t tile,
+                                          const bf16* __restrict__ src,
+                                          int r0, int n, int d, bool aligned) {
+  constexpr int kChunks = kD / 8;
+  constexpr int kStep = kThreads / kChunks;  // rows a pass of the block
+  if constexpr (kThreads % kChunks == 0 && kStep % 8 == 0) {
+    // a thread keeps its chunk c and its row's swizzle in every pass
+    if (aligned) {
+      const int r = threadIdx.x / kChunks;
+      const int c = threadIdx.x % kChunks;
+      const uint32_t dst = tile + tile_offset(kTileRows, r, c);
+      const bf16* from = src + size_t(r0 + r) * d + 8 * c;
+      const bool col_ok = 8 * c < d;
+#pragma unroll
+      for (int j = 0; j < kTileRows / kStep; ++j) {
+        const bool ok = col_ok && r0 + r + j * kStep < n;
+        cp_async<16>(dst + j * kStep * 128,
+                     ok ? from + size_t(j) * kStep * d : src, ok ? 16 : 0);
+      }
+      return;
+    }
+  }
+  for (int i = threadIdx.x; i < kTileRows * kChunks; i += kThreads) {
+    const int r = i / kChunks;
+    const int c = i - r * kChunks;
+    const int row = r0 + r;
+    load_chunk(tile + tile_offset(kTileRows, r, c),
+               src + size_t(row) * d + 8 * c,
+               row < n ? min(d - 8 * c, 8) : 0);
+  }
+}
+
+// Whether load_tile's 16-byte path takes these arrays.
+__device__ __forceinline__ bool aligned16(int d, const void* a, const void* b,
+                                          const void* c, const void* e) {
+  const uintptr_t x = reinterpret_cast<uintptr_t>(a) |
+                      reinterpret_cast<uintptr_t>(b) |
+                      reinterpret_cast<uintptr_t>(c) |
+                      reinterpret_cast<uintptr_t>(e);
+  return d % 8 == 0 && (x & 15) == 0;
+}
+
+// Rows r0 .. r0 + count - 1 of one head's (n,) float32 array; zeros past n.
+template <int kThreads>
+__device__ __forceinline__ void load_rows(float* dst,
+                                          const float* __restrict__ src,
+                                          int r0, int n, int count) {
+  for (int i = threadIdx.x; i < count; i += kThreads) {
+    if (r0 + i < n)
+      cp_async<4>(smem_u32(dst + i), src + r0 + i, 4);
+    else
+      dst[i] = 0.f;
+  }
+}
+
+// Whether an output's rows take bf16 pairs: an even width, 4-byte aligned.
+__device__ __forceinline__ bool pairs_ok(const bf16* out, int d) {
+  return d % 2 == 0 && (reinterpret_cast<uintptr_t>(out) & 3) == 0;
+}
+
+// Two adjacent values of an output row (columns col, col + 1) in bf16,
+// those at or past d dropped.
+__device__ __forceinline__ void store_pair(bf16* __restrict__ row, int col,
+                                           int d, bool pairs, float x,
+                                           float y) {
+  if (pairs && col + 1 < d) {
+    *reinterpret_cast<__nv_bfloat162*>(row + col) = __floats2bfloat162_rn(x, y);
+  } else {
+    if (col < d) row[col] = __float2bfloat16(x);
+    if (col + 1 < d) row[col + 1] = __float2bfloat16(y);
+  }
+}
+
+// The dot product of two bf16 rows of width d (at most kD), split over kT
+// neighbouring threads of a warp (sub = 0 .. kT - 1) and summed over them.
+// A thread issues eight 16-byte loads of each row before it uses one.
+template <int kD, int kT>
+__device__ __forceinline__ float row_dot(const bf16* __restrict__ a,
+                                         const bf16* __restrict__ b, int d,
+                                         int sub) {
+  constexpr int kBatch = 8;
+  constexpr int kSteps = (kD / 8 + kT - 1) / kT;
+  float acc = 0.f;
+  const uintptr_t ab = reinterpret_cast<uintptr_t>(a) |
+                       reinterpret_cast<uintptr_t>(b);
+  if ((ab & 15) == 0 && d % 8 == 0) {
+    for (int j0 = 0; j0 < kSteps; j0 += kBatch) {
+      uint4 x[kBatch], y[kBatch];
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j) {
+        const int c = 8 * ((j0 + j) * kT + sub);
+        x[j] = y[j] = make_uint4(0, 0, 0, 0);
+        if (c < d) {
+          x[j] = *reinterpret_cast<const uint4*>(a + c);
+          y[j] = *reinterpret_cast<const uint4*>(b + c);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j) {
+        const auto* xs = reinterpret_cast<const __nv_bfloat162*>(&x[j]);
+        const auto* ys = reinterpret_cast<const __nv_bfloat162*>(&y[j]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 fx = __bfloat1622float2(xs[e]);
+          const float2 fy = __bfloat1622float2(ys[e]);
+          acc = fmaf(fx.x, fy.x, acc);
+          acc = fmaf(fx.y, fy.y, acc);
+        }
+      }
+    }
+  } else {
+    for (int c = sub; c < d; c += kT)
+      acc = fmaf(__bfloat162float(a[c]), __bfloat162float(b[c]), acc);
+  }
+#pragma unroll
+  for (int off = kT / 2; off > 0; off >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  return acc;
+}
+
+template <int kN>
+__device__ __forceinline__ void zero(float (&x)[kN]) {
+#pragma unroll
+  for (int i = 0; i < kN; ++i) x[i] = 0.f;
+}
+
+// Column of accumulator register i (of an m64nN tile) for this lane; its
+// row is 16 * warp + lane / 4 + 8 * ((i / 2) % 2).
+__device__ __forceinline__ int acc_col(int i, int lane) {
+  return 8 * (i / 4) + 2 * (lane % 4) + (i % 2);
+}
+
+// K3's work for one block: kN output columns from c0 for this warpgroup.
+template <int kD, int kTile, int kWG, int kN>
+__device__ __forceinline__ void dkv_block(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const bf16* __restrict__ g,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    bf16* __restrict__ dk, bf16* __restrict__ dv, int n, int d, float scale,
+    uint8_t* smem, int c0) {
+  constexpr int kThreads = kWG * 128;
+  constexpr int kTileBytes = tile_bytes(kTile, kD);
+  const uint32_t ks = smem_u32(smem);
+  const uint32_t vs = ks + tile_bytes(kRows, kD);
+  const uint32_t ring = vs + tile_bytes(kRows, kD);  // stage s: Q, dO
+  float* rows_f = reinterpret_cast<float*>(smem + 2 * tile_bytes(kRows, kD) +
+                                           4 * kTileBytes);  // [2][lse, delta]
+
+  const int k0 = blockIdx.y * kRows;
+  const int warp = (threadIdx.x / 32) % 4;
+  const int lane = threadIdx.x % 32;
+  const bool aligned = aligned16(d, q, k, v, g);
+
+  auto load_stage = [&](int t) {
+    const int s = t & 1;
+    load_tile<kTile, kD, kThreads>(ring + 2 * s * kTileBytes, q, t * kTile, n,
+                                   d, aligned);
+    load_tile<kTile, kD, kThreads>(ring + (2 * s + 1) * kTileBytes, g,
+                                   t * kTile, n, d, aligned);
+    load_rows<kThreads>(rows_f + 2 * s * kTile, lse, t * kTile, n, kTile);
+    load_rows<kThreads>(rows_f + (2 * s + 1) * kTile, delta, t * kTile, n,
+                        kTile);
+  };
+  load_tile<kRows, kD, kThreads>(ks, k, k0, n, d, aligned);
+  load_tile<kRows, kD, kThreads>(vs, v, k0, n, d, aligned);
+  load_stage(0);
+  cp_async_commit();
+
+  float dk_acc[kN / 2], dv_acc[kN / 2];
+  zero(dk_acc);
+  zero(dv_acc);
+  const float scale_log2 = scale * kLog2e;
+  const int tiles = (n + kTile - 1) / kTile;
+  for (int t = 0; t < tiles; ++t) {
+    // tile t (and at t = 0 the block's own rows) has landed, and every
+    // warpgroup is done with tile t - 1
+    cp_async_wait<0>();
+    fence_async_shared();
+    __syncthreads();
+
+    const int s = t & 1;
+    const int q0 = t * kTile;
+    const uint32_t qs = ring + 2 * s * kTileBytes;
+    const uint32_t gs = qs + kTileBytes;
+    const float* lse_t = rows_f + 2 * s * kTile;
+    const float* delta_t = lse_t + kTile;
+
+    // S^T = K Q^T and dP^T = V dO^T: 64 keys x kTile queries
+    float st[kTile / 2], dpt[kTile / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < kD / 16; ++j)
+      mma_ss<kTile>(st, desc_k(ks, kRows, 0, j), desc_k(qs, kTile, 0, j), j);
+#pragma unroll
+    for (int j = 0; j < kD / 16; ++j)
+      mma_ss<kTile>(dpt, desc_k(vs, kRows, 0, j), desc_k(gs, kTile, 0, j), j);
+    wgmma_commit();
+    // while they run, tile t + 1 into the stage of tile t - 1
+    if (t + 1 < tiles) {
+      load_stage(t + 1);
+      cp_async_commit();
+    }
+    wgmma_wait<0>();
+    fence_regs(st);
+    fence_regs(dpt);
+
+    // P^T and dS^T in bf16, as the A fragments of k-step i / 8
+    uint32_t pa[kTile / 16][4], dsa[kTile / 16][4];
+#pragma unroll
+    for (int i = 0; i < kTile / 2; i += 2) {
+      const int col = acc_col(i, lane);
+      const float2 l2 = *reinterpret_cast<const float2*>(lse_t + col);
+      const float2 d2 = *reinterpret_cast<const float2*>(delta_t + col);
+      const float p0 =
+          q0 + col < n ? exp2f(st[i] * scale_log2 - l2.x * kLog2e) : 0.f;
+      const float p1 =
+          q0 + col + 1 < n ? exp2f(st[i + 1] * scale_log2 - l2.y * kLog2e)
+                           : 0.f;
+      pa[i / 8][(i % 8) / 2] = pack_bf16(p0, p1);
+      dsa[i / 8][(i % 8) / 2] =
+          pack_bf16(p0 * (dpt[i] - d2.x), p1 * (dpt[i + 1] - d2.y));
+    }
+
+    // dV += P^T dO and dK += dS^T Q over this tile's queries
+    fence_regs(dv_acc);
+    fence_regs(dk_acc);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < kTile / 16; ++j) {
+      mma_rs<kN>(dv_acc, pa[j], desc_mn(gs, kTile, c0, j), 1);
+      mma_rs<kN>(dk_acc, dsa[j], desc_mn(qs, kTile, c0, j), 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dv_acc);
+    fence_regs(dk_acc);
+  }
+
+  const bool pairs_k = pairs_ok(dk, d);
+  const bool pairs_v = pairs_ok(dv, d);
+#pragma unroll
+  for (int i = 0; i < kN / 2; i += 2) {
+    const int row = k0 + 16 * warp + lane / 4 + 8 * ((i / 2) % 2);
+    if (row >= n) continue;  // padded keys are not stored
+    const int col = c0 + acc_col(i, lane);
+    store_pair(dk + size_t(row) * d, col, d, pairs_k, dk_acc[i] * scale,
+               dk_acc[i + 1] * scale);
+    store_pair(dv + size_t(row) * d, col, d, pairs_v, dv_acc[i],
+               dv_acc[i + 1]);
+  }
+}
+
+// K2's work for one block: kN dQ columns from c0 for this warpgroup.
+template <int kD, int kTile, int kWG, int kN>
+__device__ __forceinline__ void dq_block(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const bf16* __restrict__ o,
+    const bf16* __restrict__ g, const float* __restrict__ lse,
+    bf16* __restrict__ dq, float* __restrict__ delta, int n, int d,
+    float scale, uint8_t* smem, int c0) {
+  constexpr int kThreads = kWG * 128;
+  constexpr int kTileBytes = tile_bytes(kTile, kD);
+  const uint32_t qs = smem_u32(smem);
+  const uint32_t gs = qs + tile_bytes(kRows, kD);
+  const uint32_t ring = gs + tile_bytes(kRows, kD);  // stage s: K, V
+  float* lse_s = reinterpret_cast<float*>(smem + 2 * tile_bytes(kRows, kD) +
+                                          4 * kTileBytes);  // [kRows]
+  float* delta_s = lse_s + kRows;                            // [kRows]
+
+  const int q0 = blockIdx.y * kRows;
+  const int warp = (threadIdx.x / 32) % 4;
+  const int lane = threadIdx.x % 32;
+  const bool aligned = aligned16(d, q, k, v, g);
+
+  auto load_stage = [&](int t) {
+    const int s = t & 1;
+    load_tile<kTile, kD, kThreads>(ring + 2 * s * kTileBytes, k, t * kTile, n,
+                                   d, aligned);
+    load_tile<kTile, kD, kThreads>(ring + (2 * s + 1) * kTileBytes, v,
+                                   t * kTile, n, d, aligned);
+  };
+  load_tile<kRows, kD, kThreads>(qs, q, q0, n, d, aligned);
+  load_tile<kRows, kD, kThreads>(gs, g, q0, n, d, aligned);
+  load_stage(0);
+  cp_async_commit();
+
+  // delta = rowsum(dO o O) of the block's rows, kThreads / kRows threads a
+  // row, while the copies fly; the first group of columns writes it out.
+  // Rows past n: lse 0, delta 0.
+  {
+    constexpr int kT = kThreads / kRows;
+    const int r = threadIdx.x / kT;
+    const int row = q0 + r;
+    const float x = row_dot<kD, kT>(g + size_t(row) * d, o + size_t(row) * d,
+                                    row < n ? d : 0, threadIdx.x % kT);
+    if (threadIdx.x % kT == 0) {
+      delta_s[r] = x;
+      lse_s[r] = row < n ? lse[row] * kLog2e : 0.f;
+      if (row < n && blockIdx.z == 0) delta[row] = x;
+    }
+  }
+  __syncthreads();
+  float lse_r[2], delta_r[2];  // rows 16 * warp + lane / 4 (+ 8)
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    lse_r[h] = lse_s[16 * warp + lane / 4 + 8 * h];
+    delta_r[h] = delta_s[16 * warp + lane / 4 + 8 * h];
+  }
+
+  float dq_acc[kN / 2];
+  zero(dq_acc);
+  const float scale_log2 = scale * kLog2e;
+  const int tiles = (n + kTile - 1) / kTile;
+  for (int t = 0; t < tiles; ++t) {
+    // tile t (and at t = 0 the block's own rows) has landed, and every
+    // warpgroup is done with tile t - 1
+    cp_async_wait<0>();
+    fence_async_shared();
+    __syncthreads();
+
+    const int s = t & 1;
+    const int k0 = t * kTile;
+    const uint32_t ks = ring + 2 * s * kTileBytes;
+    const uint32_t vs = ks + kTileBytes;
+
+    // S = Q K^T and dP = dO V^T: 64 queries x kTile keys
+    float st[kTile / 2], dpt[kTile / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < kD / 16; ++j)
+      mma_ss<kTile>(st, desc_k(qs, kRows, 0, j), desc_k(ks, kTile, 0, j), j);
+#pragma unroll
+    for (int j = 0; j < kD / 16; ++j)
+      mma_ss<kTile>(dpt, desc_k(gs, kRows, 0, j), desc_k(vs, kTile, 0, j), j);
+    wgmma_commit();
+    // while they run, tile t + 1 into the stage of tile t - 1
+    if (t + 1 < tiles) {
+      load_stage(t + 1);
+      cp_async_commit();
+    }
+    wgmma_wait<0>();
+    fence_regs(st);
+    fence_regs(dpt);
+
+    // dS in bf16, as the A fragments of k-step i / 8
+    uint32_t dsa[kTile / 16][4];
+#pragma unroll
+    for (int i = 0; i < kTile / 2; i += 2) {
+      const int h = (i / 2) % 2;
+      const int col = acc_col(i, lane);
+      const float p0 =
+          k0 + col < n ? exp2f(st[i] * scale_log2 - lse_r[h]) : 0.f;
+      const float p1 =
+          k0 + col + 1 < n ? exp2f(st[i + 1] * scale_log2 - lse_r[h]) : 0.f;
+      dsa[i / 8][(i % 8) / 2] = pack_bf16(p0 * (dpt[i] - delta_r[h]),
+                                          p1 * (dpt[i + 1] - delta_r[h]));
+    }
+
+    // dQ += dS K over this tile's keys
+    fence_regs(dq_acc);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < kTile / 16; ++j)
+      mma_rs<kN>(dq_acc, dsa[j], desc_mn(ks, kTile, c0, j), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dq_acc);
+  }
+
+  const bool pairs = pairs_ok(dq, d);
+#pragma unroll
+  for (int i = 0; i < kN / 2; i += 2) {
+    const int row = q0 + 16 * warp + lane / 4 + 8 * ((i / 2) % 2);
+    if (row >= n) continue;  // padded query rows are not stored
+    store_pair(dq + size_t(row) * d, c0 + acc_col(i, lane), d, pairs,
+               dq_acc[i] * scale, dq_acc[i + 1] * scale);
+  }
+}
+
+__device__ __forceinline__ uint8_t* align_1024(uint8_t* raw) {
+  return raw + ((1024 - (smem_u32(raw) & 1023)) & 1023);
+}
+
+// Grid: (B*H, ceil(N / 64), ceil(kD / (kWG * kCols))); kWG warpgroups,
+// each owning kCols output columns (the last group of a ragged width
+// fewer, in a block of its own). The first column of this warpgroup:
+template <int kWG>
+__device__ __forceinline__ int first_col() {
+  return (blockIdx.z * kWG + threadIdx.x / 128) * kCols;
+}
+
+template <int kD, int kTile, int kWG>
+__global__ void __launch_bounds__(kWG * 128, 1)
+flash_bwd_dq_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                   const bf16* __restrict__ v, const bf16* __restrict__ o,
+                   const bf16* __restrict__ g, const float* __restrict__ lse,
+                   bf16* __restrict__ dq, float* __restrict__ delta, int n,
+                   int d, float scale) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align_1024(smem_raw);
+  const size_t head = size_t(blockIdx.x) * n * d;
+  const size_t rows = size_t(blockIdx.x) * n;
+  const int c0 = first_col<kWG>();
+  if constexpr (kD <= kCols || kD % kCols == 0) {
+    dq_block<kD, kTile, kWG, (kD < kCols ? kD : kCols)>(
+        q + head, k + head, v + head, o + head, g + head, lse + rows,
+        dq + head, delta + rows, n, d, scale, smem, c0);
+  } else {
+    static_assert(kWG == 1, "a ragged last column group is a block's own");
+    if (c0 + kCols <= kD)
+      dq_block<kD, kTile, kWG, kCols>(
+          q + head, k + head, v + head, o + head, g + head, lse + rows,
+          dq + head, delta + rows, n, d, scale, smem, c0);
+    else
+      dq_block<kD, kTile, kWG, kD % kCols>(
+          q + head, k + head, v + head, o + head, g + head, lse + rows,
+          dq + head, delta + rows, n, d, scale, smem, c0);
+  }
+}
+
+template <int kD, int kTile, int kWG>
+__global__ void __launch_bounds__(kWG * 128, 1)
+flash_bwd_dkv_wgmma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, const bf16* __restrict__ g,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, bf16* __restrict__ dk,
+                    bf16* __restrict__ dv, int n, int d, float scale) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align_1024(smem_raw);
+  const size_t head = size_t(blockIdx.x) * n * d;
+  const size_t rows = size_t(blockIdx.x) * n;
+  const int c0 = first_col<kWG>();
+  if constexpr (kD <= kCols || kD % kCols == 0) {
+    dkv_block<kD, kTile, kWG, (kD < kCols ? kD : kCols)>(
+        q + head, k + head, v + head, g + head, lse + rows, delta + rows,
+        dk + head, dv + head, n, d, scale, smem, c0);
+  } else {
+    static_assert(kWG == 1, "a ragged last column group is a block's own");
+    if (c0 + kCols <= kD)
+      dkv_block<kD, kTile, kWG, kCols>(
+          q + head, k + head, v + head, g + head, lse + rows, delta + rows,
+          dk + head, dv + head, n, d, scale, smem, c0);
+    else
+      dkv_block<kD, kTile, kWG, kD % kCols>(
+          q + head, k + head, v + head, g + head, lse + rows, delta + rows,
+          dk + head, dv + head, n, d, scale, smem, c0);
+  }
+}
+
+}  // namespace tc
 
 struct Args {
   const void* q;
@@ -383,64 +928,111 @@ cudaError_t prepare(Kernel kernel, size_t smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
 }
 
-template <typename T, int D, bool kPad>
-cudaError_t launch_dq(const Args& a) {
+template <int D, bool kPad>
+cudaError_t launch_dq_f32(const Args& a) {
+  using namespace f32;
   const size_t smem = dq_smem_floats<D>() * sizeof(float);
-  cudaError_t err = prepare(flash_bwd_dq_kernel<T, D, kPad>, smem);
+  cudaError_t err = prepare(flash_bwd_dq_kernel<D, kPad>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(a.bh, (a.n + kBlockRows - 1) / kBlockRows);
-  flash_bwd_dq_kernel<T, D, kPad><<<grid, kThreads, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.o),
-      static_cast<const T*>(a.g), static_cast<const float*>(a.lse),
-      static_cast<T*>(a.out0), static_cast<float*>(a.out1), a.n, a.d,
+  flash_bwd_dq_kernel<D, kPad><<<grid, kThreads, smem, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.o),
+      static_cast<const float*>(a.g), static_cast<const float*>(a.lse),
+      static_cast<float*>(a.out0), static_cast<float*>(a.out1), a.n, a.d,
       a.scale);
   return cudaGetLastError();
 }
 
-template <typename T, int D, bool kPad>
-cudaError_t launch_dkv(const Args& a) {
+template <int D, bool kPad>
+cudaError_t launch_dkv_f32(const Args& a) {
+  using namespace f32;
   const size_t smem = dkv_smem_floats<D>() * sizeof(float);
-  cudaError_t err = prepare(flash_bwd_dkv_kernel<T, D, kPad>, smem);
+  cudaError_t err = prepare(flash_bwd_dkv_kernel<D, kPad>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(a.bh, (a.n + kBlockRows - 1) / kBlockRows);
-  flash_bwd_dkv_kernel<T, D, kPad><<<grid, kThreads, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.g),
+  flash_bwd_dkv_kernel<D, kPad><<<grid, kThreads, smem, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.g),
       static_cast<const float*>(a.lse),
-      static_cast<const float*>(a.delta_in), static_cast<T*>(a.out0),
-      static_cast<T*>(a.out1), a.n, a.d, a.scale);
+      static_cast<const float*>(a.delta_in), static_cast<float*>(a.out0),
+      static_cast<float*>(a.out1), a.n, a.d, a.scale);
   return cudaGetLastError();
 }
 
-template <bool kDq, typename T, int D, bool kPad>
-cudaError_t launch_one(const Args& a) {
-  return kDq ? launch_dq<T, D, kPad>(a) : launch_dkv<T, D, kPad>(a);
+template <bool kDq, int D, bool kPad>
+cudaError_t launch_f32(const Args& a) {
+  return kDq ? launch_dq_f32<D, kPad>(a) : launch_dkv_f32<D, kPad>(a);
 }
 
-template <bool kDq, typename T>
-cudaError_t dispatch_d(const Args& a) {
+template <bool kDq>
+cudaError_t dispatch_f32(const Args& a) {
   switch (a.d) {
-    case 32: return launch_one<kDq, T, 32, false>(a);
-    case 64: return launch_one<kDq, T, 64, false>(a);
-    case 128: return launch_one<kDq, T, 128, false>(a);
-    case 256: return launch_one<kDq, T, 256, false>(a);
+    case 32: return launch_f32<kDq, 32, false>(a);
+    case 64: return launch_f32<kDq, 64, false>(a);
+    case 128: return launch_f32<kDq, 128, false>(a);
+    case 256: return launch_f32<kDq, 256, false>(a);
     default: break;
   }
   // any other width: the next kernel width, its columns past d padded
-  if (a.d <= 0 || a.d > 288) return cudaErrorInvalidValue;
-  if (a.d < 32) return launch_one<kDq, T, 32, true>(a);
-  if (a.d < 64) return launch_one<kDq, T, 64, true>(a);
-  if (a.d < 128) return launch_one<kDq, T, 128, true>(a);
-  if (a.d < 256) return launch_one<kDq, T, 256, true>(a);
-  return launch_one<kDq, T, 288, true>(a);
+  if (a.d < 32) return launch_f32<kDq, 32, true>(a);
+  if (a.d < 64) return launch_f32<kDq, 64, true>(a);
+  if (a.d < 128) return launch_f32<kDq, 128, true>(a);
+  if (a.d < 256) return launch_f32<kDq, 256, true>(a);
+  return launch_f32<kDq, 288, true>(a);
+}
+
+template <bool kDq, int kD, int kTile, int kWG>
+cudaError_t launch_bf16(const Args& a) {
+  using tc::bf16;
+  const dim3 grid(a.bh, (a.n + tc::kRows - 1) / tc::kRows,
+                  (kD + kWG * tc::kCols - 1) / (kWG * tc::kCols));
+  if constexpr (kDq) {
+    const auto kernel = tc::flash_bwd_dq_wgmma<kD, kTile, kWG>;
+    const size_t smem = tc::smem_bytes<kD, kTile>(2 * tc::kRows);
+    cudaError_t err = prepare(kernel, smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, kWG * 128, smem, a.stream>>>(
+        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+        static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.o),
+        static_cast<const bf16*>(a.g), static_cast<const float*>(a.lse),
+        static_cast<bf16*>(a.out0), static_cast<float*>(a.out1), a.n, a.d,
+        a.scale);
+  } else {
+    const auto kernel = tc::flash_bwd_dkv_wgmma<kD, kTile, kWG>;
+    const size_t smem = tc::smem_bytes<kD, kTile>(4 * kTile);
+    cudaError_t err = prepare(kernel, smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, kWG * 128, smem, a.stream>>>(
+        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+        static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.g),
+        static_cast<const float*>(a.lse),
+        static_cast<const float*>(a.delta_in), static_cast<bf16*>(a.out0),
+        static_cast<bf16*>(a.out1), a.n, a.d, a.scale);
+  }
+  return cudaGetLastError();
+}
+
+// bf16: the kernel of the next width of 32, 64, 128, 256 and 288; two
+// warpgroups at 256, three one-warpgroup blocks of 32-row tiles at 288. At
+// 256 a sequence of at most 32 rows (the flagship's 25-token FeaT) takes
+// 32-row tiles, which halve the empty rows of its one tile.
+template <bool kDq>
+cudaError_t dispatch_bf16(const Args& a) {
+  if (a.d <= 32) return launch_bf16<kDq, 32, 64, 1>(a);
+  if (a.d <= 64) return launch_bf16<kDq, 64, 64, 1>(a);
+  if (a.d <= 128) return launch_bf16<kDq, 128, 64, 1>(a);
+  if (a.d <= 256)
+    return a.n <= 32 ? launch_bf16<kDq, 256, 32, 2>(a)
+                     : launch_bf16<kDq, 256, 64, 2>(a);
+  return launch_bf16<kDq, 288, 32, 1>(a);
 }
 
 template <bool kDq>
 int dispatch(const Args& a, int is_bf16) {
-  if (a.bh <= 0 || a.n <= 0) return int(cudaErrorInvalidValue);
-  return int(is_bf16 ? dispatch_d<kDq, __nv_bfloat16>(a)
-                     : dispatch_d<kDq, float>(a));
+  if (a.bh <= 0 || a.n <= 0 || a.d <= 0 || a.d > 288)
+    return int(cudaErrorInvalidValue);
+  return int(is_bf16 ? dispatch_bf16<kDq>(a) : dispatch_f32<kDq>(a));
 }
 
 }  // namespace

@@ -71,13 +71,15 @@ def flash_attention_plain(q, k, v, scale):
 
 
 def _p_and_ds(q, k, v, do, lse, delta, scale):
-    """P recomputed from lse, and dS = P∘(dO·Vᵀ − delta), in float32."""
+    """P recomputed from lse, and dS = P∘(dO·Vᵀ − delta), both rounded to
+    q's dtype (the operand type of the products that use them) and
+    returned in the accumulation type."""
     q32, k32, v32, do32 = (_acc(t) for t in (q, k, v, do))
     p = torch.exp(torch.matmul(q32, k32.transpose(-1, -2)) * scale
                   - lse.unsqueeze(-1))
     ds = p * (torch.matmul(do32, v32.transpose(-1, -2))
               - delta.unsqueeze(-1))
-    return p, ds
+    return _acc(p.to(q.dtype)), _acc(ds.to(q.dtype))
 
 
 def bwd_dq_plain(q, k, v, o, lse, do, scale):
@@ -98,9 +100,13 @@ def bwd_dkv_plain(q, k, v, do, lse, delta, scale):
 def flash_attention_bwd_plain(q, k, v, o, lse, do, scale):
     """What the backward kernels compute, in plain PyTorch: (dq, dk, dv).
 
-    P is recomputed from ``lse`` and delta = rowsum(dO∘O); P, dP and dS
-    stay in float32 (no rounding to bf16, as in the TPU kernels) and the
-    grads come back in the input types."""
+    P is recomputed from ``lse`` and delta = rowsum(dO∘O); S, P, dP and dS
+    are computed in float32, and P and dS are rounded to the input type
+    before the products that use them (dS·K, Pᵀ·dO, dSᵀ·Q), where the bf16
+    kernels feed them to the tensor cores; in float32 and float64 the
+    rounding does nothing. The grads come back in the input types. (The
+    JAX kernels keep P and dS in float32 and run their products at
+    ``Precision.DEFAULT``.)"""
     dq, delta = bwd_dq_plain(q, k, v, o, lse, do, scale)
     return (dq,) + bwd_dkv_plain(q, k, v, do, lse, delta, scale)
 

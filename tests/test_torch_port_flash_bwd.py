@@ -4,7 +4,9 @@ Function against the JAX op.
 The JAX kernels run in Pallas interpret mode here, as the JAX package's
 own tests run them. Bars: 5e-4 on f32 grads and 4e-2 on bf16 grads, the
 JAX package's gradient bars against its XLA reference
-(tests/test_ops_attention_t2.py:47,50).
+(tests/test_ops_attention_t2.py:47,50). The bf16 plain backward, which
+rounds P and dS to bf16 where the kernels feed them to the tensor cores,
+is also held against a float64 computation that rounds at the same places.
 """
 
 import importlib
@@ -21,8 +23,10 @@ jax_flash_mod = importlib.import_module(
 port = importlib.import_module("oaprogressionmmf_torch.ops.flash_attention")
 
 ATOL = {torch.float32: 5e-4, torch.bfloat16: 4e-2}
-# (200, 64): 2 blocks; 276: DenseNet-161 FeaT heads, padded to 288
-SHAPES = [(25, 32), (92, 32), (200, 64), (92, 256), (25, 276)]
+# (200, 64): 2 blocks; 276: DenseNet-161 FeaT heads, padded to 288; 65 and
+# 130 straddle the bf16 kernels' 64-row tiles by one and two rows
+SHAPES = [(25, 32), (92, 32), (200, 64), (92, 256), (25, 276), (65, 64),
+          (130, 64), (65, 256)]
 
 
 def _inputs(b, h, n, d, seed):
@@ -131,3 +135,47 @@ def test_kernel_checks_take_any_head_width_up_to_288(d):
     wide = torch.zeros(1, 2, 8, 289)
     with pytest.raises(ValueError, match="at most 288"):
         port._check_kernel_inputs(wide, wide, wide, wide, wide)
+
+
+def _bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """Spacing of bf16 values at |x| (8 significant bits)."""
+    mag = x.abs().clamp_min(torch.finfo(torch.float32).tiny)
+    return torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+def test_bf16_plain_bwd_rounds_p_and_ds_like_float64():
+    """The bf16 plain backward against float64 arithmetic that rounds P and
+    dS to bf16 at the same places (before dS·K, Pᵀ·dO and dSᵀ·Q).
+
+    Bar per value: one bf16 ulp of the float64 value (the final rounding to
+    bf16), plus 2^-8 of the largest single term of that value's sum. The
+    second part covers a P or dS within float32 error of a bf16 rounding
+    midpoint, which float32 and float64 round to neighbouring bf16 values
+    (one term moves by at most 2^-8 of itself), and bounds float32's
+    accumulation error (at most n^2 2^-24 of that term, for n = 65)."""
+    b, h, n, d = 1, 2, 65, 64
+    q, k, v, g = (torch.from_numpy(a).to(torch.bfloat16)
+                  for a in _inputs(b, h, n, d, seed=21))
+    scale = d ** -0.5
+    out, lse = port.flash_attention_plain(q, k, v, scale)
+    got = port.flash_attention_bwd_plain(q, k, v, out, lse, g, scale)
+
+    q64, k64, v64, g64, o64 = (t.double() for t in (q, k, v, g, out))
+    p = torch.exp(q64 @ k64.transpose(-1, -2) * scale
+                  - lse.double().unsqueeze(-1))
+    delta = (g64 * o64).sum(-1, keepdim=True)
+    ds = p * (g64 @ v64.transpose(-1, -2) - delta)
+    p16, ds16 = (t.to(torch.bfloat16).double() for t in (p, ds))
+    # each grad as the sum over its terms a_i b_i, summed and maximal
+    terms = {
+        "dq": (ds16.unsqueeze(-1) * k64.unsqueeze(-3) * scale, -2),
+        "dk": (ds16.unsqueeze(-1) * q64.unsqueeze(-2) * scale, -3),
+        "dv": (p16.unsqueeze(-1) * g64.unsqueeze(-2), -3),
+    }
+    for name, grad in zip(("dq", "dk", "dv"), got):
+        t, dim = terms[name]
+        want = t.sum(dim)
+        bar = _bf16_ulp(want) + 2.0 ** -8 * t.abs().amax(dim)
+        assert grad.dtype == torch.bfloat16
+        err = (grad.double() - want).abs()
+        assert bool((err <= bar).all()), (name, float((err - bar).max()))
