@@ -21,16 +21,20 @@ Phases (any failure exits non-zero; nothing is caught):
      out; bf16 against the unfused F.batch_norm → relu → max_pool2d; times
      of the kernel, the plain version and the unfused three library calls
      (no single PyTorch call computes this function) beside the bound;
- 3d. the int8 implicit-GEMM convolution K5 against its plain version (a
-     float64 convolution of the int8 values, exact) bit for bit at every
-     int8 conv shape of the flagship at batch 4 (DESS 256 and T2 100
-     slices of 160² through ResNet50, the X-ray at 350² through
-     ResNeXt50-32x4d with 32 groups: the 7x7/s2 stems, the 3x3/s1 and
-     3x3/s2 convs), with a planted ±127 input against overflow; times of
-     the kernel, the plain version and two labelled library yardsticks
-     (torch._int_mm on an explicit im2col, the GEMM alone; the bf16
+ 3d. the int8 implicit-GEMM convolution K5 with its fused epilogue
+     (scale, BatchNorm, residual, ReLU, requantize) against its plain
+     version (the int32 sums of a float64 convolution of the int8 values,
+     exact, then the eager float32 ops) bit for bit at every conv of the
+     flagship's quantized FEs at batch 4 (DESS 256 and T2 100 slices of
+     160² through ResNet50, the X-ray at 350² through ResNeXt50-32x4d with
+     32 groups: the 7x7/s2 stems, the 3x3/s1 and 3x3/s2 convs and the 1x1
+     conv1, conv3 and downsample convs), each with the epilogue the model
+     gives it, and every epilogue at three shapes; a planted ±127 input
+     against overflow; times of the kernel, the plain version and two
+     labelled library yardsticks (torch._int_mm on an explicit im2col, or
+     on the input itself for a 1x1: the GEMM alone; the bf16
      channels_last F.conv2d of the same shape) beside the bound, per call
-     and per request (51 launches);
+     and per request (159 launches, and the 51 3x3 and 7x7 ones);
   4. the flagship XR1MR2C1CnnTrf inference slice at the full width of
      bench.py's config: random weights from bench_param_spec.json (seeded,
      bench.py's recipe), carried across with from_jax_variables and loaded
@@ -47,7 +51,7 @@ Phases (any failure exits non-zero; nothing is caught):
      writes an int8-all bundle (and an int8 one) in the JAX layout to a
      temporary directory, load_serving_bundle reads it back, and a few
      batch-4 requests run with every launch count set to 0 just before and
-     read just after (51 K5, 12 K1 and 3 K4 per request in both modes; the
+     read just after (159 K5, 12 K1 and 3 K4 per request in both modes; the
      int8 mode's FeaTs stay bf16); probabilities finite; the final FeaT's
      tokens and states, less their mean over knees, within CENTRED_RTOL of
      the bf16 request's input-driven part; ms per request, knees/s, device
@@ -231,7 +235,27 @@ FAMILY_REQUESTS = 3
 ENCODER_BATCH = 2
 
 # phase 3d: K5 at the flagship's int8 convs; phase 4c: int8 serving
-K5_PER_REQUEST = 51       # 17 convs (stem, 13 3x3/s1, 3 3x3/s2) x 3 FEs
+K5_PER_REQUEST = 159      # 53 convs (stem, 16 3x3, 32 1x1, 4 downsample) x 3
+K5_SUBSET = 51            # of them the stems and 3x3s (k > 1)
+# the epilogues: (BatchNorm, residual, ReLU, int8 output)
+K5_VARIANTS = {
+    "bn_relu_int8": (True, None, True, True),             # conv1, conv2
+    "bn_f32": (True, None, False, False),                 # downsample
+    "bn_res_f32_relu_int8": (True, "f32", True, True),    # conv3 after a ds
+    "bn_res_int8_relu_int8": (True, "int8", True, True),  # conv3, identity
+    "scale_f32": (False, None, False, False),             # the stem
+}
+# every epilogue also at these convs
+K5_VARIANT_SHAPES = ("dess stage1 conv3 1x1 +id", "xr stage1 conv2 3x3/s1",
+                     "dess stage3 conv2 3x3/s1")
+K5_DESIGN = ("tensor cores: wgmma m64nNk32 s8 (N = 64 or 128), 128 pixels a "
+             "block in two warpgroups, K in 128-byte stages through a "
+             "three-stage cp.async ring, A gathered from the NHWC map in "
+             "16-byte channel runs (8 or 4 bytes for groups of 8 or 4 and "
+             "the stem), narrow groups block-diagonal in 64-channel tiles; "
+             "scale and BatchNorm on the int32 accumulators, then residual, "
+             "ReLU and requantize on 16-channel runs through shared memory "
+             "before the one store")
 INT8_MODES = ("int8-all", "int8")
 # DenseNet-161 FeaT heads (2208 / 8), the width K2/K3 now pad to 288; its
 # MR1CnnTrf FeaT holds 64 slice tokens and a CLS token
@@ -758,17 +782,33 @@ def resnet_int8_convs(fe: str, n: int, size: int, groups: int = 1,
                       base_width: int = 64) -> list:
     """The K5 convs of one int8 ResNet50 (ResNeXt50 with ``groups``) FE on
     n grayscale images of size²: [(label, x shape NHWC, Cout, k, stride,
-    pad, groups, launches per request)]."""
-    convs = [(f"{fe} stem 7x7/s2", (n, size, size, 1), 64, 7, 2, 3, 1, 1)]
+    pad, groups, epilogue, launches per request)]."""
+    convs = [(f"{fe} stem 7x7/s2", (n, size, size, 1), 64, 7, 2, 3, 1,
+              "scale_f32", 1)]
     s = ((size + 1) // 2 + 1) // 2            # conv1 /2, max pool /2
+    in_ch = 64
     for i, blocks in enumerate((3, 4, 6, 3)):
         w = int(64 * 2 ** i * base_width / 64) * groups
-        if i > 0:
-            convs.append((f"{fe} stage{i + 1} 3x3/s2", (n, s, s, w), w, 3, 2,
-                          1, groups, 1))
-            s = (s + 1) // 2
-        convs.append((f"{fe} stage{i + 1} 3x3/s1", (n, s, s, w), w, 3, 1, 1,
-                      groups, blocks - (i > 0)))
+        out = 256 * 2 ** i
+        stride = 2 if i > 0 else 1
+        so = (s + 1) // 2 if i > 0 else s
+        st = f"{fe} stage{i + 1}"
+        convs += [
+            (f"{st}.0 conv1 1x1", (n, s, s, in_ch), w, 1, 1, 0, 1,
+             "bn_relu_int8", 1),
+            (f"{st}.0 conv2 3x3/s{stride}", (n, s, s, w), w, 3, stride, 1,
+             groups, "bn_relu_int8", 1),
+            (f"{st}.0 downsample 1x1/s{stride}", (n, s, s, in_ch), out, 1,
+             stride, 0, 1, "bn_f32", 1),
+            (f"{st}.0 conv3 1x1 +ds", (n, so, so, w), out, 1, 1, 0, 1,
+             "bn_res_f32_relu_int8", 1),
+            (f"{st} conv1 1x1", (n, so, so, out), w, 1, 1, 0, 1,
+             "bn_relu_int8", blocks - 1),
+            (f"{st} conv2 3x3/s1", (n, so, so, w), w, 3, 1, 1, groups,
+             "bn_relu_int8", blocks - 1),
+            (f"{st} conv3 1x1 +id", (n, so, so, w), out, 1, 1, 0, 1,
+             "bn_res_int8_relu_int8", blocks - 1)]
+        in_ch, s = out, so
     return convs
 
 
@@ -780,50 +820,114 @@ def flagship_int8_convs() -> list:
              + resnet_int8_convs("dess", BATCH * 64, 160)
              + resnet_int8_convs("t2", BATCH * 25, 160))
     assert sum(c[-1] for c in convs) == K5_PER_REQUEST
+    assert sum(c[-1] for c in convs if c[3] > 1) == K5_SUBSET
     return convs
 
 
-def int8_conv_inputs(xshape, cout, k, groups, gen):
-    x = torch.randint(-127, 128, xshape, dtype=torch.int8, device="cuda",
+def int8_conv_inputs(xshape, cout, k, stride, pad, groups, variant, gen):
+    """Random int8 input and weights and the epilogue's float32 inputs of
+    one conv, scaled as a calibrated FE's are (|t| of order 1 before the
+    requantize at amax 4): ((x, w, sc), keyword arguments of
+    int8_conv2d)."""
+    use_bn, res_kind, relu, int8_out = K5_VARIANTS[variant]
+    dev = "cuda"
+
+    def rand(shape, lo, hi):
+        return torch.rand(shape, device=dev, generator=gen) * (hi - lo) + lo
+
+    x = torch.randint(-127, 128, xshape, dtype=torch.int8, device=dev,
                       generator=gen)
     w = torch.randint(-127, 128, (cout, xshape[3] // groups, k, k),
-                      dtype=torch.int8, device="cuda", generator=gen)
-    return x, w
+                      dtype=torch.int8, device=dev, generator=gen)
+    s_x = torch.tensor(2.0 ** -6, device=dev)
+    w_scale = rand(cout, 0.5, 1.5) * (64 / (73 ** 2 * w[0].numel() ** 0.5))
+    kw = {"relu": relu}
+    if use_bn:
+        var, weight = rand(cout, 0.5, 2.0), rand(cout, 0.5, 1.5)
+        kw["bn"] = (torch.randn(cout, device=dev, generator=gen) * 0.3,
+                    torch.rsqrt(var + 1e-5) * weight,
+                    torch.randn(cout, device=dev, generator=gen) * 0.3)
+    oshape = (xshape[0], (xshape[1] + 2 * pad - k) // stride + 1,
+              (xshape[2] + 2 * pad - k) // stride + 1, cout)
+    if res_kind == "f32":
+        kw["res"] = torch.randn(oshape, device=dev, generator=gen)
+    elif res_kind == "int8":
+        kw["res"] = torch.randint(-127, 128, oshape, dtype=torch.int8,
+                                  device=dev, generator=gen)
+        kw["res_scale"] = torch.tensor(3.0, device=dev) / 127
+    if int8_out:
+        kw["out_scale"] = torch.tensor(4.0, device=dev) / 127
+    return (x, w, s_x * w_scale), kw
 
 
-def check_int8_conv(label, x, w, stride, pad, groups) -> None:
-    """K5 against its plain version: equal bit for bit, or exit."""
+def check_int8_conv(label, args, stride, pad, groups, kw) -> float:
+    """K5 against its plain version: equal bit for bit, or exit; returns
+    the largest difference (0)."""
     ic = int8_module()
-    got = ic.int8_conv2d(x, w, stride, pad, groups)
-    want = ic.int8_conv2d_plain(x, w, stride, pad, groups)
+    x, w, sc = args
+    got = ic.int8_conv2d(x, w, sc, stride, pad, groups, **kw)
+    want = ic.int8_conv2d_fused_plain(x, w, sc, stride, pad, groups, **kw)
     torch.cuda.synchronize()
-    n_diff = int((got != want).sum().item()) if got.shape == want.shape \
-        else -1
-    log(f"[int8_conv] {label:22s} x{tuple(x.shape)} w{tuple(w.shape)} "
-        f"s{stride} g{groups} -> {tuple(got.shape)}: {n_diff} values differ "
-        f"from the plain version (max|y| {want.abs().max().item()}) "
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise SystemExit(f"K5 gave {got.dtype} {tuple(got.shape)} at {label}, "
+                         f"its plain version {want.dtype} "
+                         f"{tuple(want.shape)}")
+    bits = ((got.view(torch.int32) != want.view(torch.int32))
+            if got.dtype == torch.float32 else got != want)
+    n_diff = int(bits.sum().item())
+    err = (got.float() - want.float()).abs().max().item()
+    log(f"[int8_conv] {label:30s} x{tuple(x.shape)} w{tuple(w.shape)} "
+        f"s{stride} g{groups} -> {got.dtype} {tuple(got.shape)}: {n_diff} "
+        f"values differ from the plain version in any bit (max|d| {err:.3e}, "
+        f"max|y| {want.float().abs().max().item():.4g}) "
         f"{'ok' if n_diff == 0 else 'FAIL'}")
     if n_diff != 0:
         raise SystemExit(f"K5 disagrees with its plain version at {label}")
+    return err
 
 
-def int8_conv_bound_ms(x, w, out) -> tuple[float, str]:
-    """Least time for one call: x and w read once, the int32 output written
-    once; 2 operations per int8 product at the int8 dense peak."""
-    nbytes = x.numel() + w.numel() + 4 * out.numel()
+def touched(size: int, k: int, stride: int, pad: int, out: int) -> int:
+    """How many of ``size`` input rows (or columns) the ``out`` windows of
+    width ``k`` read: all for k ≥ stride, every stride-th for a strided
+    1x1."""
+    rows = set()
+    for o in range(out):
+        rows.update(range(max(o * stride - pad, 0),
+                          min(o * stride - pad + k, size)))
+    return len(rows)
+
+
+def int8_conv_bound_ms(x, w, out, kw, stride, pad) -> tuple[float, str]:
+    """Least time for one call: the int8 input pixels the windows touch,
+    the weights, the epilogue's per-channel vectors and the residual read
+    once, the output (int8 or float32) written once; 2 operations per int8
+    product the conv needs (a group's channels only) at the int8 dense
+    peak."""
+    n, h, wd, c = x.shape
+    k = w.shape[-1]
+    x_bytes = (n * c * touched(h, k, stride, pad, out.shape[1])
+               * touched(wd, k, stride, pad, out.shape[2]))
+    nbytes = (x_bytes + w.numel() + 4 * w.shape[0] * (
+        1 + 3 * ("bn" in kw)) + out.numel() * out.element_size())
+    if "res" in kw:
+        nbytes += kw["res"].numel() * kw["res"].element_size()
     ops = 2 * out.numel() * w[0].numel()
     return roofline_ms(nbytes, ops, torch.int8)
 
 
 def im2col_int8(x, w, stride, pad, groups):
     """The library yardstick's operands: an explicit (M, K) int8 im2col of
-    x and the (Cout, K) int8 weight, K padded to a multiple of 8; a grouped
-    weight becomes its block-diagonal dense form (the JAX package's)."""
+    x (for a 1x1, x itself at the stride) and the (Cout, K) int8 weight,
+    K padded to a multiple of 8; a grouped weight becomes its
+    block-diagonal dense form (the JAX package's)."""
     k = w.shape[-1]
-    cols = F.unfold(x.permute(0, 3, 1, 2).float(), k, padding=pad,
-                    stride=stride)                  # (N, C*k*k, L)
-    a = cols.transpose(1, 2).reshape(-1, cols.shape[1]).to(torch.int8)
-    del cols
+    if k == 1 and groups == 1:
+        a = x[:, ::stride, ::stride].reshape(-1, x.shape[-1])
+    else:
+        cols = F.unfold(x.permute(0, 3, 1, 2).float(), k, padding=pad,
+                        stride=stride)                  # (N, C*k*k, L)
+        a = cols.transpose(1, 2).reshape(-1, cols.shape[1]).to(torch.int8)
+        del cols
     if groups > 1:
         cout, cg = w.shape[:2]
         dense = torch.zeros(cout, cg * groups, k, k, dtype=torch.int8,
@@ -841,57 +945,89 @@ def im2col_int8(x, w, stride, pad, groups):
 
 
 def phase_int8_conv() -> dict:
-    """Phase 3d: K5 bit for bit against its plain version at every int8
-    conv shape of the flagship, a planted ±127 input, and times."""
+    """Phase 3d: K5 bit for bit against its plain version at every conv of
+    the flagship's quantized FEs with its epilogue, every epilogue at
+    K5_VARIANT_SHAPES, a planted ±127 input, and times."""
     ic = int8_module()
     gen = torch.Generator(device="cuda").manual_seed(5)
-    record = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-              "library_bf16_conv_ms": 0.0, "bound_ms": 0.0,
-              "max_abs_err": 0, "per_shape": []}
+    keys = ("ms", "plain_ms", "library_ms", "library_bf16_conv_ms",
+            "bound_ms")
+    record = {key: 0.0 for key in keys}
+    record.update(max_abs_err=0.0, per_shape=[],
+                  subset={key: 0.0 for key in keys})
     parts = {"bytes": 0.0, "operations": 0.0}
-    for label, xshape, cout, k, stride, pad, groups, reps in \
+    for label, xshape, cout, k, stride, pad, groups, variant, reps in \
             flagship_int8_convs():
-        x, w = int8_conv_inputs(xshape, cout, k, groups, gen)
-        check_int8_conv(label, x, w, stride, pad, groups)
-        out = ic.int8_conv2d(x, w, stride, pad, groups)
+        args, kw = int8_conv_inputs(xshape, cout, k, stride, pad, groups,
+                                    variant, gen)
+        x, w, sc = args
+        err = check_int8_conv(f"{label} [{variant}]", args, stride, pad,
+                              groups, kw)
+        if label in K5_VARIANT_SHAPES:
+            for other in sorted(K5_VARIANTS):
+                if other != variant:
+                    oargs, okw = int8_conv_inputs(xshape, cout, k, stride,
+                                                  pad, groups, other, gen)
+                    err = max(err, check_int8_conv(
+                        f"{label} [{other}]", oargs, stride, pad, groups,
+                        okw))
+                    del oargs, okw
+        record["max_abs_err"] = max(record["max_abs_err"], err)
+        out = ic.int8_conv2d(x, w, sc, stride, pad, groups, **kw)
         a, b = im2col_int8(x, w, stride, pad, groups)
         xb = x.permute(0, 3, 1, 2).to(torch.bfloat16)     # channels_last
         wb = w.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
-        t_k = time_ms(lambda: ic.int8_conv2d(x, w, stride, pad, groups), 20)
-        t_p = time_ms(lambda: ic.int8_conv2d_plain(x, w, stride, pad, groups),
-                      2)
+        w_packed = ic.pack_int8_conv_weight(w, groups)   # as the FEs hold it
+        t_k = time_ms(lambda: ic.int8_conv2d(x, w, sc, stride, pad, groups,
+                                             w_packed=w_packed, **kw), 20)
+        t_p = time_ms(lambda: ic.int8_conv2d_fused_plain(
+            x, w, sc, stride, pad, groups, **kw), 2)
         t_l = time_ms(lambda: torch._int_mm(a, b.t()), 20)
         t_b = time_ms(lambda: F.conv2d(xb, wb, None, stride, pad, 1, groups),
                       20)
-        bound, by = int8_conv_bound_ms(x, w, out)
-        log(f"[int8_conv] {label:22s} x{xshape} Cout {cout} k{k} s{stride} "
-            f"g{groups} ({reps}/request): kernel {t_k:.4f} ms  plain "
-            f"{t_p:.4f} ms  int_mm on im2col {t_l:.4f} ms  bf16 conv "
+        bound, by = int8_conv_bound_ms(x, w, out, kw, stride, pad)
+        log(f"[int8_conv] {label:30s} x{xshape} Cout {cout} k{k} s{stride} "
+            f"g{groups} {variant} ({reps}/request): kernel {t_k:.4f} ms  "
+            f"plain {t_p:.4f} ms  int_mm {t_l:.4f} ms  bf16 conv "
             f"{t_b:.4f} ms  bound {bound:.5f} ms ({by})")
         record["per_shape"].append(dict(
             name=label, x=list(xshape), cout=cout, k=k, stride=stride,
-            groups=groups, per_request=reps, ms=t_k, plain_ms=t_p,
-            library_ms=t_l, library_bf16_conv_ms=t_b, bound_ms=bound,
-            bound_by=by))
-        for key, t in (("ms", t_k), ("plain_ms", t_p), ("library_ms", t_l),
-                       ("library_bf16_conv_ms", t_b), ("bound_ms", bound)):
+            groups=groups, epilogue=variant, per_request=reps, ms=t_k,
+            plain_ms=t_p, library_ms=t_l, library_bf16_conv_ms=t_b,
+            bound_ms=bound, bound_by=by))
+        for key, t in zip(keys, (t_k, t_p, t_l, t_b, bound)):
             record[key] += reps * t
+            if k > 1:
+                record["subset"][key] += reps * t
         parts[by] += reps * bound
-        del x, w, out, a, b, xb, wb
+        del args, kw, x, w, sc, out, a, b, xb, wb, w_packed
         torch.cuda.empty_cache()
-    # a planted ±127 input and weight at the deepest reduction (9 x 512)
+    # a planted ±127 input and weight at the deepest reduction (9 x 512):
+    # int32 sums up to 74e6, past float32's 2**24, in both stores
     x = torch.full((BATCH * 64, 5, 5, 512), 127, dtype=torch.int8,
                    device="cuda")
     x[::2] = -127
     w = torch.full((512, 512, 3, 3), 127, dtype=torch.int8, device="cuda")
     w[1::3] = -127
-    check_int8_conv("planted +-127", x, w, 1, 1, 1)
+    for variant in ("scale_f32", "bn_relu_int8"):
+        args, kw = int8_conv_inputs((1, 1, 1, 512), 512, 3, 1, 1, 1, variant,
+                                    gen)
+        if variant == "bn_relu_int8":    # |t| up to ~200: spread, not clipped
+            kw["out_scale"] = torch.tensor(300.0, device="cuda") / 127
+        kw.pop("res", None)
+        check_int8_conv(f"planted +-127 [{variant}]", (x, w, args[2]), 1, 1,
+                        1, kw)
     record["bound_by"] = max(parts, key=parts.get)
+    sub = record["subset"]
     log(f"[int8_conv] per flagship request ({K5_PER_REQUEST} launches): "
         f"kernel {record['ms']:.4f} ms, plain {record['plain_ms']:.4f} ms, "
-        f"int_mm on im2col {record['library_ms']:.4f} ms, bf16 conv "
+        f"int_mm {record['library_ms']:.4f} ms, bf16 conv "
         f"{record['library_bf16_conv_ms']:.4f} ms, bound "
-        f"{record['bound_ms']:.5f} ms ({record['bound_by']})")
+        f"{record['bound_ms']:.5f} ms ({record['bound_by']}); the "
+        f"{K5_SUBSET} stems and 3x3s: kernel {sub['ms']:.4f} ms, int_mm "
+        f"{sub['library_ms']:.4f} ms, bf16 conv "
+        f"{sub['library_bf16_conv_ms']:.4f} ms, bound {sub['bound_ms']:.5f}"
+        f" ms")
     return record
 
 
@@ -1024,7 +1160,7 @@ def compare_dtypes(got: dict, want: dict, segments: dict) -> None:
 # match wins)
 KERNEL_CATEGORIES = (
     ("fused stem (bn_relu_pool)", ("bn_relu_pool",)),
-    ("int8 conv (K5)", ("int8_conv_kernel",)),
+    ("int8 conv (K5)", ("int8_conv",)),
     ("attention backward (flash_bwd)", ("flash_bwd_dq", "flash_bwd_dkv")),
     ("attention (flash_fwd)", ("flash_fwd",)),
     ("copies", ("memcpy", "memset")),
@@ -1631,17 +1767,20 @@ def main() -> int:
     k5_launches = int8["int8-all"]["launches"]["K5"]
     kernels.append(dict(
         name="int8_conv2d", route="cuda", source=src + "int8_conv.cu",
-        replaces="scripts/exp_pallas_conv.py:28", launches=k5_launches,
-        launches_per_request=k5_launches / REQUESTS,
+        replaces="scripts/exp_pallas_conv.py:28", design=K5_DESIGN,
+        launches=k5_launches, launches_per_request=k5_launches / REQUESTS,
         launches_int8_mode=int8["int8"]["launches"]["K5"],
         max_abs_err=k5["max_abs_err"], ms=k5["ms"], plain_ms=k5["plain_ms"],
         bound_ms=k5["bound_ms"], bound_by=k5["bound_by"],
         library_ms=k5["library_ms"],
-        library_computes="torch._int_mm on an explicit int8 im2col: the "
-                         "GEMM alone, the im2col not timed",
+        library_computes="torch._int_mm on an explicit int8 im2col (a 1x1: "
+                         "on the input itself): the GEMM alone, no "
+                         "epilogue, the im2col not timed",
         library_bf16_conv_ms=k5["library_bf16_conv_ms"],
         library_bf16_conv_computes="F.conv2d in bf16, channels_last, the "
-                                   "same shape",
+                                   "same shape, no epilogue",
+        stems_and_3x3s=dict(launches_per_request=K5_SUBSET,
+                            **k5["subset"]),
         per_shape=k5["per_shape"]))
     log(f"[int8] ms per request: {json.dumps(int8)}")
     log(f"[family] ms per request: {json.dumps(family_ms)}")

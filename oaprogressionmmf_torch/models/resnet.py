@@ -20,17 +20,24 @@ direct int8 stem bit for bit).
 ``QUANT_FE_ARCHS``): activations between convs are int8-resident
 :class:`~..ops.quant.QTensor` s in NHWC, requantized at the sites
 ``amax_in`` and ``amax_stem`` (FE) and ``amax_1``, ``amax_2`` and
-``amax_out`` (block), each an :class:`~..ops.quant.ActSite`. The 3x3 convs
-and the 7x7 stem take the int8 implicit-GEMM kernel K5
-(``ops/int8_conv.py``), the 1x1 convs ``torch._int_mm``; the int32 sums
-are scaled to float32, and BatchNorm, ReLU and the residual add run in
-float32 with float32 parameters (a quantized FE keeps float32 in a bf16
-model). The stem runs the fused BatchNorm + ReLU + max pool kernel K4 in
-float32 and quantizes the pooled map, which equals JAX's quantize-then-pool
-(quantization is monotone). "calib" modes run the float graph (convs in the
-input's dtype, BatchNorm in float32) and record each site's statistic.
-The int8 weights and their scales come from the float32 weights once, in
-:meth:`prepare_int8`, before a model is cast.
+``amax_out`` (block), each an :class:`~..ops.quant.ActSite`. Every conv,
+3x3, 7x7 and 1x1, runs the int8 implicit-GEMM kernel K5
+(``ops/int8_conv.py``) with its epilogue in the kernel's store: the int32
+sums scaled to float32 by ``x.scale · s_w``, then BatchNorm, the residual
+and ReLU in float32 with float32 parameters, and the requantize to the
+next site's scale, so nothing between two convs of a block touches memory
+(a quantized FE keeps float32 in a bf16 model). A block's sites own the
+calibrated statistics; the block hands their scales to the kernel. The
+stem's K5 call stores float32, then runs the fused BatchNorm + ReLU + max
+pool kernel K4 in float32 and quantizes the pooled map, which equals JAX's
+quantize-then-pool (quantization is monotone). "calib" modes run the float
+graph (convs in the input's dtype, BatchNorm in float32) and record each
+site's statistic; both modes run one chain a block (:func:`quant_conv`).
+The int8 weights, their scales and K5's packed weights come from the
+float32 weights once, in :meth:`prepare_int8`, before a model is cast;
+then each conv's epilogue constants (``s_in · s_w``, BatchNorm's ``mul``)
+and each site's scale, once the statistics are loaded
+(:meth:`ResNetFE.prepare_int8`).
 
 The registry (``FE_ARCHS``, ``FE_OUT_CHANNELS``, ``FE_STRIDE32``) also holds
 the encoders of ``models/encoders.py``, as the JAX package's does.
@@ -43,7 +50,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.fused_stem import fused_bn_relu_pool, stem_epilogue
-from ..ops.int8_conv import int8_conv2d, int8_matmul, pack_int8_conv_weight
+from ..ops.int8_conv import int8_conv2d, pack_int8_conv_weight
 from ..ops.quant import (ActSite, QTensor, check_quant_mode, dequant,
                          quantize_sym, weight_scale)
 from .encoders import EXTRA_FE_ARCHS, EXTRA_FE_OUT_CHANNELS, RGBStemConv
@@ -53,27 +60,34 @@ def _bn(c: int) -> nn.BatchNorm2d:
     return nn.BatchNorm2d(c, eps=1e-5, momentum=0.1)
 
 
-def _prepared_int8(w: torch.Tensor, groups: int, pack: bool) -> tuple:
+def _prepared_int8(w: torch.Tensor, groups: int) -> tuple:
     """float32 (Cout, Cg, kh, kw) → (int8 weight, float32 per-channel
-    scale, K5's packed words or None)."""
+    scale, K5's packed weights)."""
     s_w = weight_scale(w, dim=(1, 2, 3))
     w8 = quantize_sym(w, s_w[:, None, None, None])
-    return w8, s_w, pack_int8_conv_weight(w8, groups) if pack else None
+    return w8, s_w, pack_int8_conv_weight(w8, groups)
 
 
 class QConv2d(nn.Conv2d):
     """``nn.Conv2d`` (used without bias) whose int8 weight, per-channel
-    scale and, for K5, packed weight words are prepared once from its
-    float32 weight."""
+    scale and K5's packed weights are prepared once from its float32
+    weight, and K5's epilogue constants once from its input site's scale
+    and its BatchNorm (:meth:`prepare_epilogue`)."""
 
     def __init__(self, *args, **kw):
         super().__init__(*args, **kw)
-        for name in ("w_int8", "w_scale", "w_packed"):
+        for name in ("w_int8", "w_scale", "w_packed", "sc", "bn_mul"):
             self.register_buffer(name, None, persistent=False)
 
     def prepare_int8(self) -> None:
         self.w_int8, self.w_scale, self.w_packed = _prepared_int8(
-            self.weight.detach(), self.groups, self.kernel_size != (1, 1))
+            self.weight.detach(), self.groups)
+
+    def prepare_epilogue(self, s_in: torch.Tensor, bn=None) -> None:
+        """``sc = s_in · s_w`` and ``bn``'s ``mul`` (:func:`bn_vectors`),
+        with the ops the eager chain ran on every request."""
+        self.sc = s_in * _require(self.w_scale)
+        self.bn_mul = None if bn is None else bn_vectors(bn)[1]
 
 
 def _nchw(x):
@@ -91,36 +105,77 @@ def _require(w8):
     return w8
 
 
-def quant_conv(conv: nn.Conv2d, x, weight=None):
-    """One conv of a quantized FE on NHWC activations.
-
-    A :class:`QTensor` takes the int8 path (K5, or ``torch._int_mm`` for a
-    1x1 conv, on a strided view at stride 2) and returns the int32 sums
-    scaled to float32 by ``x.scale · s_w``. A float tensor (the "calib"
-    graph) runs the plain conv in its own dtype, ``weight`` (default the
-    conv's) cast to it."""
-    stride, pad = conv.stride[0], conv.padding[0]
+def quant_conv(conv: nn.Conv2d, x, bn=None, res=None, relu: bool = False,
+               site: ActSite | None = None, weight=None):
+    """One conv of a quantized FE with its epilogue, on NHWC activations:
+    the conv, ``bn`` (eval BatchNorm), the residual ``res``, ReLU, then
+    ``site``. A QTensor ``x`` runs K5 with the epilogue in its store
+    (:func:`int8_conv`); a float ``x`` (calib) runs the plain conv in its
+    dtype (``weight``, default the conv's, cast to it) and the epilogue
+    eagerly in float32, and the site records its statistic."""
     if isinstance(x, QTensor):
-        w8 = _require(conv.w_int8)
-        if conv.kernel_size == (1, 1):
-            d = x.data[:, ::stride, ::stride] if stride > 1 else x.data
-            n, h, w, c = d.shape
-            y = int8_matmul(d.reshape(n * h * w, c),
-                            w8.reshape(w8.shape[0], c)).reshape(n, h, w, -1)
-        else:
-            y = int8_conv2d(x.data, w8, stride, pad, conv.groups,
-                            conv.w_packed)
-        return y.float() * (x.scale * conv.w_scale)
+        return int8_conv(conv, x, bn, res, relu, site)
     w = conv.weight if weight is None else weight
-    y = F.conv2d(_nchw(x), w.to(x.dtype), None, stride, pad, 1, conv.groups)
-    return _nhwc(y)
+    y = _nhwc(F.conv2d(_nchw(x), w.to(x.dtype), None, conv.stride[0],
+                       conv.padding[0], 1, conv.groups))
+    if bn is not None:
+        y = bn_nhwc(bn, y)
+    if res is not None:
+        y = y + res
+    if relu:
+        y = y.relu_()
+    return y if site is None else site(y)
+
+
+def bn_vectors(bn: nn.BatchNorm2d) -> tuple:
+    """Eval BatchNorm as (mean, mul, bias), float32 per channel, with
+    ``mul = rsqrt(var + eps) · scale`` (flax's order)."""
+    return (bn.running_mean, torch.rsqrt(bn.running_var + bn.eps) * bn.weight,
+            bn.bias)
 
 
 def bn_nhwc(bn: nn.BatchNorm2d, y) -> torch.Tensor:
     """Eval BatchNorm over the last axis in float32, in flax's order:
-    (y − mean) · (rsqrt(var + eps) · scale) + bias."""
-    mul = torch.rsqrt(bn.running_var + bn.eps) * bn.weight
-    return (y.float() - bn.running_mean) * mul + bn.bias
+    (y − mean) · mul + bias."""
+    mean, mul, bias = bn_vectors(bn)
+    return (y.float() - mean) * mul + bias
+
+
+def int8_conv(conv: QConv2d, x: QTensor, bn=None, res=None,
+              relu: bool = False, site: ActSite | None = None):
+    """One int8 conv of a quantized FE through K5, its epilogue in the
+    kernel's store: ``x.scale · s_w``, then ``bn`` (eval BatchNorm), the
+    residual ``res`` (float32 NHWC, or a QTensor), ReLU; a QTensor at
+    ``site``'s scale, or float32 without a site. ``x.scale · s_w`` and
+    BatchNorm's ``mul`` are the conv's, prepared at load
+    (:meth:`ResNetFE.prepare_int8`); a request computes no vector."""
+    out_scale = None if site is None else site.scale()
+    res_scale = None
+    if isinstance(res, QTensor):
+        res, res_scale = res
+    mul = None if bn is None else _require(conv.bn_mul)
+    y = int8_conv2d(x.data, _require(conv.w_int8), _require(conv.sc),
+                    conv.stride[0], conv.padding[0], conv.groups,
+                    bn=None if bn is None else (bn.running_mean, mul, bn.bias),
+                    res=res, res_scale=res_scale, relu=relu,
+                    out_scale=out_scale, w_packed=conv.w_packed)
+    return y if site is None else QTensor(y, out_scale)
+
+
+def prepare_block_epilogues(block, s_in: torch.Tensor) -> torch.Tensor:
+    """K5's epilogue constants of a quantized block's convs, its input at
+    scale ``s_in``; returns the block's output scale."""
+    scales = [s_in, block.amax_1.scale()]
+    convs = [(block.conv1, block.bn1), (block.conv2, block.bn2)]
+    if isinstance(block, Bottleneck):
+        scales.append(block.amax_2.scale())
+        convs.append((block.conv3, block.bn3))
+    if block.downsample is not None:
+        scales.append(s_in)
+        convs.append(tuple(block.downsample))
+    for (conv, bn), s in zip(convs, scales):
+        conv.prepare_epilogue(s, bn)
+    return block.amax_out.scale()
 
 
 class BasicBlock(nn.Module):
@@ -155,21 +210,18 @@ class BasicBlock(nn.Module):
 
     def forward_quant(self, x):
         """NHWC QTensor (int8) or float (calib) → the same after amax_out."""
-        y = bn_nhwc(self.bn1, quant_conv(self.conv1, x)).relu_()
-        y = self.amax_1(y)
-        y = bn_nhwc(self.bn2, quant_conv(self.conv2, y))
-        return self.amax_out(_residual_relu(self, x, y))
+        y = quant_conv(self.conv1, x, self.bn1, relu=True, site=self.amax_1)
+        return quant_conv(self.conv2, y, self.bn2, _residual(self, x),
+                          relu=True, site=self.amax_out)
 
 
-def _residual_relu(block, x, y):
-    """relu(y + residual) in float32: the downsampled input, or the input
-    itself dequantized."""
-    if block.downsample is not None:
-        conv, bn = block.downsample
-        res = bn_nhwc(bn, quant_conv(conv, x))
-    else:
-        res = dequant(x, y.dtype)
-    return (y + res).relu_()
+def _residual(block, x):
+    """The residual of a quantized block: the downsampled input (float32),
+    or the input itself."""
+    if block.downsample is None:
+        return x
+    conv, bn = block.downsample
+    return quant_conv(conv, x, bn)
 
 
 class Bottleneck(nn.Module):
@@ -210,12 +262,10 @@ class Bottleneck(nn.Module):
 
     def forward_quant(self, x):
         """NHWC QTensor (int8) or float (calib) → the same after amax_out."""
-        y = bn_nhwc(self.bn1, quant_conv(self.conv1, x)).relu_()
-        y = self.amax_1(y)
-        y = bn_nhwc(self.bn2, quant_conv(self.conv2, y)).relu_()
-        y = self.amax_2(y)
-        y = bn_nhwc(self.bn3, quant_conv(self.conv3, y))
-        return self.amax_out(_residual_relu(self, x, y))
+        y = quant_conv(self.conv1, x, self.bn1, relu=True, site=self.amax_1)
+        y = quant_conv(self.conv2, y, self.bn2, relu=True, site=self.amax_2)
+        return quant_conv(self.conv3, y, self.bn3, _residual(self, x),
+                          relu=True, site=self.amax_out)
 
 
 class StemConv(RGBStemConv):
@@ -228,7 +278,7 @@ class StemConv(RGBStemConv):
     def __init__(self, features: int = 64):
         super().__init__(features, 7, stride=2, padding=3, bias=False)
         for cin in (1, 3):
-            for name in ("w_int8", "w_scale", "w_packed"):
+            for name in ("w_int8", "w_scale", "w_packed", "sc"):
                 self.register_buffer(f"{name}_c{cin}", None,
                                      persistent=False)
 
@@ -243,14 +293,20 @@ class StemConv(RGBStemConv):
     def prepare_int8(self) -> None:
         for cin in (1, 3):
             w8, s_w, packed = _prepared_int8(
-                self.kernel_for(cin).detach().contiguous(), 1, True)
+                self.kernel_for(cin).detach().contiguous(), 1)
             setattr(self, f"w_int8_c{cin}", w8)
             setattr(self, f"w_scale_c{cin}", s_w)
             setattr(self, f"w_packed_c{cin}", packed)
 
+    def prepare_epilogue(self, s_in: torch.Tensor) -> None:
+        """K5's ``sc = s_in · s_w`` for either input, computed once."""
+        for cin in (1, 3):
+            setattr(self, f"sc_c{cin}",
+                    s_in * _require(getattr(self, f"w_scale_c{cin}")))
+
     def int8_weights(self, cin: int) -> tuple:
-        """(int8 kernel, per-channel scale, K5 words) for ``cin`` input
-        channels."""
+        """(int8 kernel, per-channel scale, K5's packed weights) for ``cin``
+        input channels."""
         self.kernel_for(cin)   # refuses a channel count other than 1 or 3
         return (_require(getattr(self, f"w_int8_c{cin}")),
                 getattr(self, f"w_scale_c{cin}"),
@@ -291,6 +347,18 @@ class ResNetFE(nn.Sequential):
             self.amax_in = ActSite(quant)
             self.amax_stem = ActSite(quant)
 
+    def prepare_int8(self) -> None:
+        """K5's epilogue constants of every conv, from the sites' scales:
+        run after the statistics are loaded and the convs and sites
+        prepared (``ops.quant.prepare_int8`` prepares submodules first)."""
+        if self.quant != "int8":
+            return
+        self[0].prepare_epilogue(self.amax_in.scale())
+        s = self.amax_stem.scale()
+        for i in range(4, self.n_layers):
+            for block in self[i]:
+                s = prepare_block_epilogues(block, s)
+
     def forward(self, x):
         if self.quant:
             return self.forward_quant(x)
@@ -308,17 +376,18 @@ class ResNetFE(nn.Sequential):
         conv1, bn1 = self[0], self[1]
         x = self.amax_in(_nhwc(x))
         if isinstance(x, QTensor):
-            # int8 stem through K5, then K4 in float32 and a requantize
-            w8, s_w, packed = conv1.int8_weights(x.data.shape[-1])
-            y = int8_conv2d(x.data, w8, 2, 3, 1, packed)
-            y = _nchw(y.float() * (x.scale * s_w))
-            z = fused_bn_relu_pool(y, bn1.weight, bn1.bias, bn1.running_mean,
-                                   bn1.running_var, bn1.eps)
+            # int8 stem through K5 to float32, then K4 and a requantize
+            cin = x.data.shape[-1]
+            w8, _, packed = conv1.int8_weights(cin)
+            y = int8_conv2d(x.data, w8, _require(getattr(conv1, f"sc_c{cin}")),
+                            2, 3, w_packed=packed)
+            z = fused_bn_relu_pool(_nchw(y), bn1.weight, bn1.bias,
+                                   bn1.running_mean, bn1.running_var, bn1.eps)
             x = self.amax_stem(_nhwc(z))
         else:
             k = conv1.kernel_for(x.shape[-1])
-            z = bn_nhwc(bn1, quant_conv(conv1, x, weight=k)).relu_()
-            z = self.amax_stem(z)
+            z = quant_conv(conv1, x, bn1, relu=True, site=self.amax_stem,
+                           weight=k)
             x = _nhwc(F.max_pool2d(_nchw(z), 3, 2, 1))
         for i in range(4, self.n_layers):
             x = self[i](x)

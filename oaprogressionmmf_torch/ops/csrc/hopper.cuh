@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks of the port's tensor-core kernels
-// (flash_bwd.cu): 16-, 8- and 4-byte cp.async with zero fill, the 128-byte
-// swizzled tile layout that wgmma reads, wgmma's shared-memory
-// descriptors, and the bf16 wgmma instructions with float32 accumulators.
+// (flash_bwd.cu, int8_conv.cu): 16-, 8- and 4-byte cp.async with zero
+// fill, the 128-byte swizzled tile layout that wgmma reads, wgmma's
+// shared-memory descriptors, the bf16 wgmma instructions with float32
+// accumulators and the s8 ones with int32 accumulators.
 //
 // Tile layout. A tile of R rows (R a multiple of 8) of bf16 values is kept
 // as column atoms of 64 values (128 bytes a row): atom a holds columns
@@ -19,7 +20,12 @@
 //    16s .. 16s + 15; 8-row groups lie 1024 bytes apart (SBO) and N's
 //    64-value atoms R * 128 bytes apart (LBO).
 //
-// Accumulator layout of m64nNk16 (f32): warp w of the warpgroup holds rows
+// s8 operands (int8_conv.cu) use the same tiles byte for byte: a row holds
+// 128 int8 values, and a k-step of m64nNk32 is 32 values, the same 32 bytes
+// as a bf16 k16 step, so desc_k addresses it unchanged. wgmma takes 8-bit
+// operands only K-major.
+//
+// Accumulator layout of m64nNk16 (f32; m64nNk32 s32 alike): warp w of the warpgroup holds rows
 // 16w .. 16w + 15; register i holds row 16w + lane / 4 + 8 * ((i / 2) % 2),
 // column 8 * (i / 4) + 2 * (lane % 4) + i % 2. The A operand from registers
 // has the same layout in bf16 pairs, so an accumulator over 16 columns
@@ -115,6 +121,12 @@ template <int kN>
 __device__ __forceinline__ void fence_regs(float (&d)[kN]) {
 #pragma unroll
   for (int i = 0; i < kN; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+template <int kN>
+__device__ __forceinline__ void fence_regs(int (&d)[kN]) {
+#pragma unroll
+  for (int i = 0; i < kN; ++i) asm volatile("" : "+r"(d[i]) :: "memory");
 }
 
 // Two floats as a bf16 pair, the first in the low half.
@@ -241,6 +253,61 @@ __device__ __forceinline__ void mma_rs<128>(
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
         "r"(acc));
+}
+
+// d (+)= A B, m64nNk32, s8 in, s32 accumulators (d[N / 2]), A and B K-major
+// in shared memory (N = 64, 128); acc = 0 overwrites d. Integer wgmma has
+// no scale or transpose immediates.
+template <int kN>
+__device__ void mma_s8(int (&d)[kN / 2], uint64_t da, uint64_t db, int acc);
+
+template <>
+__device__ __forceinline__ void mma_s8<64>(int (&d)[32], uint64_t da,
+                                           uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+template <>
+__device__ __forceinline__ void mma_s8<128>(int (&d)[64], uint64_t da,
+                                            uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]),
+        "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]),
+        "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),
+        "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]),
+        "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(acc));
 }
 
 }  // namespace hopper

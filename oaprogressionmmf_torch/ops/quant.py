@@ -129,7 +129,10 @@ class ActSite(nn.Module):
     "calib" modes record the running statistic of |x| into the
     non-persistent ``amax`` buffer and return x unchanged; "int8" returns x
     requantized as a :class:`QTensor` at ``max(amax, 1e-6) / 127`` (a
-    QTensor passes as it is); no mode is the identity."""
+    QTensor passes as it is); no mode is the identity. The quantized FEs
+    requantize in K5's store at :meth:`scale` instead of calling the site
+    on a float tensor. :meth:`prepare_int8`, once the statistic is loaded,
+    fixes the scale, so a request computes none."""
 
     def __init__(self, quant: str | None):
         super().__init__()
@@ -137,6 +140,20 @@ class ActSite(nn.Module):
         self.quant = quant or None
         self.register_buffer("amax", torch.zeros((), dtype=torch.float32),
                              persistent=False)
+        self.register_buffer("int8_scale", None, persistent=False)
+
+    def prepare_int8(self) -> None:
+        if self.quant == "int8":
+            self.int8_scale = act_scale(self.amax)
+
+    def scale(self) -> torch.Tensor:
+        """The site's int8 scale, ``max(amax, 1e-6) / 127`` (0-d float32):
+        what :meth:`forward` quantizes at, and what a quantized FE hands to
+        the int8 conv kernel K5 that requantizes in its store; the one
+        :meth:`prepare_int8` fixed, where it ran."""
+        if self.int8_scale is not None:
+            return self.int8_scale
+        return act_scale(self.amax)
 
     def forward(self, x):
         if is_calib(self.quant):
@@ -144,7 +161,7 @@ class ActSite(nn.Module):
             return x
         if self.quant != "int8" or isinstance(x, QTensor):
             return x
-        s = act_scale(self.amax)
+        s = self.scale()
         return QTensor(quantize_sym(x, s), s)
 
 
@@ -211,10 +228,12 @@ class QLinear(nn.Linear):
 
 def prepare_int8(model: nn.Module) -> None:
     """Compute every int8 weight and weight scale of ``model`` from its
-    float32 weights (each module's ``prepare_int8``)."""
+    float32 weights, and every site's scale from its loaded statistic
+    (each module's ``prepare_int8``, ``model``'s own included, every
+    submodule before the module that holds it)."""
     with torch.no_grad():
-        for m in model.modules():
-            if m is not model and hasattr(m, "prepare_int8"):
+        for m in reversed(list(model.modules())):
+            if hasattr(m, "prepare_int8"):
                 m.prepare_int8()
 
 

@@ -1,6 +1,6 @@
 """The port's int8 primitives against the JAX package.
 
-  * ``int8_conv2d_plain`` (the oracle of the CUDA kernel K5) bit for bit
+  * ``int8_conv2d_plain`` (the int32 sums of the CUDA kernel K5) bit for bit
     against the JAX prototype K5 (``scripts/exp_pallas_conv.py::make_conv``
     in Pallas interpret mode) and against ``lax.conv_general_dilated`` with
     int32 sums: stride 2, the 7x7 stems with 1 and 3 channels, groups 4
@@ -83,7 +83,8 @@ def test_plain_conv_equals_lax_conv_int32(case):
         [(pad, pad), (pad, pad)], feature_group_count=groups,
         dimension_numbers=("NHWC", "HWIO", "NHWC"),
         preferred_element_type=jnp.int32))
-    got = int8_conv.int8_conv2d(
+    # the int32 sums of K5 (whose wrapper now stores its epilogue's output)
+    got = int8_conv.int8_conv2d_plain(
         torch.from_numpy(x), torch.from_numpy(wk.transpose(3, 2, 0, 1).copy()),
         stride, pad, groups)
     np.testing.assert_array_equal(got.numpy(), want)
@@ -92,31 +93,38 @@ def test_plain_conv_equals_lax_conv_int32(case):
 def test_conv_wrapper_counts_no_launch_on_the_cpu_and_checks_shapes():
     x = torch.zeros(1, 5, 5, 8, dtype=torch.int8)
     w = torch.zeros(4, 8, 3, 3, dtype=torch.int8)
+    sc = torch.ones(4)
     before = int8_conv.int8_conv2d.launches
-    int8_conv.int8_conv2d(x, w, 1, 1)
+    int8_conv.int8_conv2d(x, w, sc, 1, 1)
     assert int8_conv.int8_conv2d.launches == before
     with pytest.raises(TypeError, match="int8"):
-        int8_conv.int8_conv2d(x.float(), w, 1, 1)
+        int8_conv.int8_conv2d(x.float(), w, sc, 1, 1)
     with pytest.raises(ValueError, match="groups"):
-        int8_conv.int8_conv2d(x, w, 1, 1, groups=3)
+        int8_conv.int8_conv2d(x, w, sc, 1, 1, groups=3)
     with pytest.raises(ValueError, match="CPU or CUDA"):
-        int8_conv.int8_conv2d(x.to("meta"), w.to("meta"), 1, 1)
+        int8_conv.int8_conv2d(x.to("meta"), w.to("meta"), sc.to("meta"), 1,
+                              1)
 
 
 def test_packed_weight_words_hold_four_channels_each():
-    """pack_int8_conv_weight: word (g, r, s, q, co) holds input channels
-    4q .. 4q + 3 of output channel g·coutg + co, lowest in the lowest byte,
-    channels past a group's width zero."""
+    """pack_int8_conv_weight: K-major rows, one per output channel; byte
+    (tap, ci) of row co holds input channel ci of its tile's reduction at
+    that tap, four channels a 4-byte word. Two groups of 4 output channels
+    share one tile, block-diagonally: channels of the other group, and
+    those past a group's 6 (padded to 8), are zero; the row is padded to a
+    multiple of 32."""
     rng = np.random.RandomState(1)
     w = torch.from_numpy(_int8(rng, (8, 6, 3, 3)))
     packed = int8_conv.pack_int8_conv_weight(w, groups=2)
-    assert packed.shape == (2, 3, 3, 2, 4) and packed.dtype == torch.int32
-    b = packed.contiguous().view(torch.int8).reshape(2, 3, 3, 2, 4, 4)
-    for g, r, s, q, co in ((0, 0, 0, 0, 0), (1, 2, 1, 1, 3), (1, 0, 2, 0, 2)):
+    assert packed.shape == (8, 160) and packed.dtype == torch.int8
+    words = packed[:, :144].reshape(8, 3, 3, 4, 4)    # (co, r, s, word, byte)
+    for co, r, s, q in ((0, 0, 0, 0), (7, 2, 1, 3), (5, 0, 2, 2), (2, 1, 1, 1)):
         for i in range(4):
-            ci = 4 * q + i
-            want = int(w[g * 4 + co, ci, r, s]) if ci < 6 else 0
-            assert int(b[g, r, s, q, co, i]) == want
+            ci = 4 * q + i                     # of the tile's 16 (2 x 8)
+            g, cig = divmod(ci, 8)
+            want = int(w[co, cig, r, s]) if g == co // 4 and cig < 6 else 0
+            assert int(words[co, r, s, q, i]) == want
+    assert not packed[:, 144:].any()
 
 
 def test_int8_matmul_is_exact():
