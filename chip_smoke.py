@@ -12,15 +12,21 @@ Phases (any failure exits non-zero; nothing is caught):
      without TF32 and in bfloat16; times of the kernel, the plain version
      and the one PyTorch call computing the same function (library_ms, a
      yardstick the port never calls), beside the least time the card
-     could take (bound_ms); K1 also at head widths 48 and 276 (DenseNet-161
-     FeaTs), which it pads;
+     could take (bound_ms); K1 also at head widths 32-128 and 276
+     (DenseNet-161 FeaTs; 48 and 276 it pads), bf16 also at N = 25, 65 and
+     129 (one 32-key tile; a last 64-row tile of one row) and in both of
+     its bf16 layouts (64 and 128 query rows a block, each timed), and D =
+     276 at N = 65 timed beside SDPA;
  3c. the fused stem kernel K4 (BatchNorm(eval) + ReLU + 3x3/2 max pool)
-     against its plain version at the flagship's three stems, the JAX
-     script's design point (4096 slices of 160²) and a 96-channel DenseNet
-     stem, in float32 (no TF32) and bf16; a NaN planted in its input comes
-     out; bf16 against the unfused F.batch_norm → relu → max_pool2d; times
-     of the kernel, the plain version and the unfused three library calls
-     (no single PyTorch call computes this function) beside the bound;
+     against its plain version bit for bit at the flagship's three stems,
+     the JAX script's design point (4096 slices of 160²), a 96-channel
+     DenseNet stem and a 20-channel map of odd height and width (the
+     scalar path), in float32 (no TF32) and bf16; NaNs planted in its
+     input come out (at DESS also at a band's halo row and a column
+     strip's edge); bf16 against the unfused F.batch_norm → relu →
+     max_pool2d; times of the kernel, the plain version and the unfused
+     three library calls (no single PyTorch call computes this function)
+     beside the bound, and of the float32 flagship stems (int8 requests);
  3d. the int8 implicit-GEMM convolution K5 with its fused epilogue
      (scale, BatchNorm, residual, ReLU, requantize) against its plain
      version (the int32 sums of a float64 convolution of the int8 values,
@@ -152,8 +158,29 @@ FLASH_D = 256
 FLASH_SCALE = 2048 ** -0.5          # full-width scale, emb_dim 2048
 MAIN_PATH_N = {64: 4, 25: 4, 92: 4}  # tokens → launches per forward
 CHECK_N = (25, 64, 92, 2432)
-# bf16 K2/K3 also at lengths that leave ragged 64-row tiles (correctness)
+# bf16 K1, K2 and K3 also at lengths that leave ragged 64-row tiles
+# (correctness)
 BWD_RAGGED_N = (65, 129)
+# bf16 K1 at its other widths also with one 32-key tile and ragged tiles
+FWD_BF16_N = (25,) + BWD_RAGGED_N
+# K1's two bf16 layouts (launch_fwd): 64 query rows a block (at D = 256
+# two warpgroups of 128 columns each), 128 rows a block (two warpgroups of
+# 64 rows); the port takes 128 where that grid has a block for every SM
+FWD_LAYOUTS = {1: "64 rows", 2: "128 rows"}
+# the two routes of K1, dispatched by type (csrc/flash_fwd.cu)
+FWD_DESIGN = {
+    "bfloat16": "tensor cores: wgmma m64nNk16 (bf16 in, float32 "
+                "accumulators), K and V in 64-key "
+                "tiles (32 when N <= 32) through two-stage cp.async rings, "
+                "K a tile ahead of V; S = Q·Kᵀ from shared memory, the "
+                "online softmax in registers (exp2f), P in bf16 from "
+                "registers into O += P·V, the next tile's S right behind it; "
+                "128 query rows a block (a warpgroup's 64 rows × all "
+                "columns, m64n256k16 at D = 256) where that grid has a block "
+                "for every SM, else 64 rows with the columns split between "
+                "warpgroups (at D = 288 the last 32 a block of their own)",
+    "float32": "CUDA cores: float32 FMAs (no TF32), 16 query rows a block, "
+               "32-key tiles staged as float32"}
 # ~0.1 s of device-side sleep: longer than the host takes to queue a
 # timing loop, so the loop's launches run back to back on the card
 SLEEP_CYCLES = 200_000_000
@@ -205,8 +232,27 @@ STEM_SHAPES = (
     ("t2", (BATCH * 25, 64, 80, 80)),         # 25 T2 slices of 160²
     ("design", (4096, 64, 80, 80)),           # scripts/exp_fused_stem.py
     ("densenet", (BATCH * 64, 96, 80, 80)),   # DenseNet-161 on DESS
+    ("scalar", (2, 20, 33, 31)),              # C % 8 != 0: the scalar path
 )
 FLAGSHIP_STEMS = ("xr", "dess", "t2")
+# NaNs planted at (image, channel, row, column) of a conv output, and the
+# pooled outputs whose windows hold one: at DESS (the vector path) rows
+# 10-11 x cols 16-17, output (0, 0), and rows 7-8 x cols 19-20, where input
+# row 15 is the halo row of the band from output row 8 and input column 39
+# the left edge of the column strip from output column 20; on the scalar
+# path output (0, 0) and rows 8-9 x cols 7-8
+STEM_NAN = {"dess": (((0, 5, 21, 33), (1, 3, 0, 0), (2, 7, 15, 39)), 9),
+            "scalar": (((0, 3, 0, 0), (1, 7, 17, 15)), 5)}
+STEM_DESIGN = ("vector path (C a multiple of 8): 8 channels of one output "
+               "column a thread, one 16-byte load in bf16 (two in float32), "
+               "the folded affine in registers; a block walks a band of "
+               "output rows (8, fewer while the grid has fewer than 4 blocks "
+               "an SM) two input rows at a time, the next pair's loads in "
+               "flight, each input read once and transformed once, column "
+               "2j - 1 from the left neighbour (or the strip's halo threads) "
+               "through shared memory, row 2i + 1's max kept in registers; "
+               "scalar path otherwise: a thread per output reading its 3x3 "
+               "window")
 # K4 against its plain version: float32 within 1e-6 of max|out|, bf16
 # within one bf16 ulp of each value (the two round every operation alike,
 # so both should be 0); against the unfused bf16 batch_norm → relu →
@@ -329,13 +375,13 @@ def roofline_ms(nbytes: float, flops: float, dtype) -> tuple[float, str]:
                                  "operations")
 
 
-def flash_bound_ms(n: int, dtype) -> tuple[float, str]:
-    """Least time for one call: q, k, v read once, O and lse written once;
-    two N×N×D products at the type's peak."""
+def flash_bound_ms(n: int, d: int, dtype) -> tuple[float, str]:
+    """Least time for one call at FLASH_BH: q, k, v read once, O and lse
+    written once; two N×N×d products at the type's peak."""
     b, h = FLASH_BH
     elt = torch.tensor([], dtype=dtype).element_size()
-    nbytes = 4 * b * h * n * FLASH_D * elt + b * h * n * 4
-    flops = 4 * b * h * n * n * FLASH_D
+    nbytes = 4 * b * h * n * d * elt + b * h * n * 4
+    flops = 4 * b * h * n * n * d
     return roofline_ms(nbytes, flops, dtype)
 
 
@@ -371,13 +417,17 @@ def phase_build():
                 log(f"[build]   {line.strip()}")
 
 
-def check_flash(q, k, v, scale) -> float:
+def check_flash(q, k, v, scale, layout=None) -> float:
     """Kernel against its plain version on the same card and inputs;
-    returns max|dO| and exits if O or lse is outside its tolerance."""
-    from oaprogressionmmf_torch.ops.flash_attention import (
-        flash_attention, flash_attention_plain)
-    out, lse = flash_attention(q, k, v, scale)
-    want, want_lse = flash_attention_plain(q, k, v, scale)
+    returns max|dO| and exits if O or lse is outside its tolerance.
+    ``layout``: launch K1 in this layout (``launch_fwd``) instead of the
+    port's own choice."""
+    fa = flash_module()
+    if layout is None:
+        out, lse = fa.flash_attention(q, k, v, scale)
+    else:
+        out, lse = fa.launch_fwd(q, k, v, scale, layout)
+    want, want_lse = fa.flash_attention_plain(q, k, v, scale)
     torch.cuda.synchronize()
     err = (out.float() - want.float()).abs().max().item()
     err_lse = (lse - want_lse).abs().max().item()
@@ -385,7 +435,8 @@ def check_flash(q, k, v, scale) -> float:
     peak = want.float().abs().max().item()
     tol_out = min(tol["out"], tol["out_rel"] * peak)
     ok = err <= tol_out and err_lse <= tol["lse"]
-    log(f"[flash] {str(q.dtype)[6:]:8s} (B,H,N,D)={tuple(q.shape)} "
+    placed = "" if layout is None else f" {FWD_LAYOUTS[layout]}"
+    log(f"[flash] {str(q.dtype)[6:]:8s} (B,H,N,D)={tuple(q.shape)}{placed} "
         f"scale={scale:.4f} max|dO|={err:.3e} (tol {tol_out:.3e}, "
         f"max|O| {peak:.3e}) max|dlse|={err_lse:.3e} (tol "
         f"{tol['lse']:.0e}) {'ok' if ok else 'FAIL'}")
@@ -395,8 +446,7 @@ def check_flash(q, k, v, scale) -> float:
 
 
 def phase_flash():
-    from oaprogressionmmf_torch.ops.flash_attention import (
-        flash_attention, flash_attention_plain)
+    fa = flash_module()
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     b, h = FLASH_BH
@@ -406,17 +456,25 @@ def phase_flash():
                                  generator=gen).to(dtype) for _ in range(3))
 
     # the other head widths the kernel takes, for correctness only: 48 and
-    # 276 (a DenseNet-161 FeaT's 2208 / 8) run padded to 64 and 288
-    for d in (32, 48, 64, 128, 276):
+    # 276 (a DenseNet-161 FeaT's 2208 / 8) run padded to 64 and 288; bf16
+    # also with one 32-key tile, where the last 64-row tile holds one row,
+    # and in the 128-row layout
+    for d in (32, 48, 64, 128, PAD_D):
         for dtype in (torch.float32, torch.bfloat16):
-            for n in (92, 130):
-                check_flash(*qkv(n, d, dtype), d ** -0.5)
+            lengths = (92, 130) + (FWD_BF16_N if dtype == torch.bfloat16
+                                   else ())
+            for n in lengths:
+                q, k, v = qkv(n, d, dtype)
+                check_flash(q, k, v, d ** -0.5)
+                if dtype == torch.bfloat16 and n > 64 and d <= FLASH_D:
+                    check_flash(q, k, v, d ** -0.5, 2)
 
     record = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
               "max_abs_err": 0.0, "per_n": []}
     bound_parts = {"bytes": 0.0, "operations": 0.0}
     for dtype in (torch.float32, torch.bfloat16):
-        for n in CHECK_N:
+        lengths = CHECK_N + (BWD_RAGGED_N if dtype == torch.bfloat16 else ())
+        for n in lengths:
             q, k, v = qkv(n, FLASH_D, dtype)
             for scale in (FLASH_SCALE, FLASH_D ** -0.5):
                 err = check_flash(q, k, v, scale)
@@ -425,20 +483,30 @@ def phase_flash():
                     record["max_abs_err"] = max(record["max_abs_err"], err)
             if dtype != torch.bfloat16:
                 continue
+            # both layouts where both run (128 rows need N > 64)
+            layouts = [lay for lay in FWD_LAYOUTS if lay == 1 or n > 64]
+            for lay in layouts:
+                check_flash(q, k, v, FLASH_SCALE, lay)
+            if n in BWD_RAGGED_N:
+                continue
             iters = 10 if n > 1000 else 200
-            t_k, t_p, t_l = (
-                time_ms(fn, iters) for fn in (
-                    lambda: flash_attention(q, k, v, FLASH_SCALE),
-                    lambda: flash_attention_plain(q, k, v, FLASH_SCALE),
-                    lambda: F.scaled_dot_product_attention(
-                        q, k, v, scale=FLASH_SCALE)))
-            bound, by = flash_bound_ms(n, dtype)
+            t_k, t_p, t_l = (time_ms(fn, iters) for fn in (
+                lambda: fa.flash_attention(q, k, v, FLASH_SCALE),
+                lambda: fa.flash_attention_plain(q, k, v, FLASH_SCALE),
+                lambda: F.scaled_dot_product_attention(
+                    q, k, v, scale=FLASH_SCALE)))
+            by_layout = {FWD_LAYOUTS[lay]: time_ms(
+                lambda: fa.launch_fwd(q, k, v, FLASH_SCALE, lay), iters)
+                for lay in layouts}
+            bound, by = flash_bound_ms(n, FLASH_D, dtype)
             log(f"[flash] bf16 N={n:5d} (B,H,D)=({b},{h},{FLASH_D}) device: "
-                f"kernel {t_k:.4f} ms  plain {t_p:.4f} ms  sdpa {t_l:.4f} ms"
-                f"  bound {bound:.5f} ms ({by})")
-            record["per_n"].append(dict(n=n, ms=t_k, plain_ms=t_p,
-                                        library_ms=t_l, bound_ms=bound,
-                                        bound_by=by))
+                f"kernel {t_k:.4f} ms (by layout: "
+                f"{', '.join(f'{k} {t:.4f}' for k, t in by_layout.items())})"
+                f"  plain {t_p:.4f} ms  sdpa {t_l:.4f} ms  bound "
+                f"{bound:.5f} ms ({by})")
+            record["per_n"].append(dict(n=n, ms=t_k, ms_by_layout=by_layout,
+                                        plain_ms=t_p, library_ms=t_l,
+                                        bound_ms=bound, bound_by=by))
             if n in MAIN_PATH_N:
                 reps = MAIN_PATH_N[n]
                 record["ms"] += reps * t_k
@@ -450,6 +518,22 @@ def phase_flash():
     log(f"[flash] per flagship forward (12 launches, bf16): kernel "
         f"{record['ms']:.4f} ms, plain {record['plain_ms']:.4f} ms, sdpa "
         f"{record['library_ms']:.4f} ms, bound {record['bound_ms']:.5f} ms")
+
+    # DenseNet-161's FeaT: D = 276 (padded to 288) over 65 tokens
+    q, k, v = qkv(PAD_N, PAD_D, torch.bfloat16)
+    scale = (8 * PAD_D) ** -0.5
+    rec = {"n": PAD_N, "d": PAD_D}
+    rec["ms"], rec["plain_ms"], rec["library_ms"] = (
+        time_ms(fn, 200) for fn in (
+            lambda: fa.flash_attention(q, k, v, scale),
+            lambda: fa.flash_attention_plain(q, k, v, scale),
+            lambda: F.scaled_dot_product_attention(q, k, v, scale=scale)))
+    rec["bound_ms"], rec["bound_by"] = flash_bound_ms(PAD_N, PAD_D,
+                                                      torch.bfloat16)
+    log(f"[flash] bf16 D={PAD_D} (padded to 288), N={PAD_N} (B,H)={(b, h)}: "
+        f"kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, sdpa "
+        f"{rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.5f} ms")
+    record["d276"] = rec
     return record
 
 
@@ -696,13 +780,14 @@ def check_stem(name: str, y, params) -> float:
     return err
 
 
-def check_stem_nan(y, params) -> None:
+def check_stem_nan(name: str, y, params) -> None:
     """A NaN in the window gives NaN, as the plain version's relu and
-    max_pool2d propagate it: one inside the map, one in a corner."""
+    max_pool2d propagate it: STEM_NAN[name]'s plants."""
     fs = stem_module()
+    plants, expected = STEM_NAN[name]
     y = y.clone()
-    y[0, 5, 21, 33] = float("nan")   # output rows 10-11, cols 16-17
-    y[1, 3, 0, 0] = float("nan")     # output (0, 0)
+    for at in plants:
+        y[at] = float("nan")
     out = fs.fused_bn_relu_pool(y, *params)
     want = fs.bn_relu_pool_plain(y, *params)
     nan = torch.isnan(out)
@@ -713,10 +798,10 @@ def check_stem_nan(y, params) -> None:
         close = (got - want).abs().max() <= STEM_F32_RTOL * want.abs().max()
     else:
         close = ((got - want).abs() <= bf16_ulp(want)).all()
-    ok = n_nan == 5 and same_nan and bool(close)
-    log(f"[stem] {str(y.dtype)[6:]:8s} NaN planted at 2 inputs: {n_nan} NaN "
-        f"outputs (expected 5, where the plain version has them) "
-        f"{'ok' if ok else 'FAIL'}")
+    ok = n_nan == expected and same_nan and bool(close)
+    log(f"[stem] {str(y.dtype)[6:]:8s} {name:8s} NaN planted at "
+        f"{len(plants)} inputs: {n_nan} NaN outputs (expected {expected}, "
+        f"where the plain version has them) {'ok' if ok else 'FAIL'}")
     if not ok:
         raise SystemExit("the fused stem kernel does not propagate NaN")
 
@@ -736,40 +821,59 @@ def phase_stem() -> dict:
     fs = stem_module()
     gen = torch.Generator(device="cuda").manual_seed(4)
     record = {"ms": 0.0, "plain_ms": 0.0, "unfused_ms": 0.0,
-              "bound_ms": 0.0, "max_abs_err": 0.0, "per_shape": []}
+              "bound_ms": 0.0, "f32_ms": 0.0, "f32_bound_ms": 0.0,
+              "max_abs_err": 0.0, "per_shape": []}
     parts = {"bytes": 0.0, "operations": 0.0}
+    f32 = {}  # flagship stem → (float32 kernel ms, its bound)
     for dtype in (torch.float32, torch.bfloat16):
         for name, shape in STEM_SHAPES:
             y, params = stem_inputs(shape, dtype, gen)
             record["max_abs_err"] = max(record["max_abs_err"],
                                         check_stem(name, y, params))
-            if name == "dess":
-                check_stem_nan(y, params)
-            if dtype == torch.bfloat16:
-                iters = 5 if name == "design" else 50
-                t_k, t_p, t_u = (time_ms(fn, iters) for fn in (
-                    lambda: fs.fused_bn_relu_pool(y, *params),
-                    lambda: fs.bn_relu_pool_plain(y, *params),
-                    lambda: unfused_stem(y, *params)))
-                bound, by = stem_bound_ms(y, shape[1], dtype)
-                log(f"[stem] bf16 {name:8s} (N,C,H,W)={shape} device: "
-                    f"kernel {t_k:.4f} ms  plain {t_p:.4f} ms  unfused (3 "
-                    f"library calls) {t_u:.4f} ms  bound {bound:.5f} ms "
-                    f"({by})")
-                record["per_shape"].append(dict(
-                    name=name, shape=list(shape), ms=t_k, plain_ms=t_p,
-                    unfused_ms=t_u, bound_ms=bound, bound_by=by))
+            if name in STEM_NAN:
+                check_stem_nan(name, y, params)
+            iters = 5 if name == "design" else 50
+            if dtype == torch.float32:
+                # the int8 requests' stems run in float32
                 if name in FLAGSHIP_STEMS:
-                    for key, t in (("ms", t_k), ("plain_ms", t_p),
-                                   ("unfused_ms", t_u), ("bound_ms", bound)):
-                        record[key] += t
-                    parts[by] += bound
+                    f32[name] = time_ms(
+                        lambda: fs.fused_bn_relu_pool(y, *params), iters), \
+                        stem_bound_ms(y, shape[1], dtype)[0]
+                del y, params
+                torch.cuda.empty_cache()
+                continue
+            t_k, t_p, t_u = (time_ms(fn, iters) for fn in (
+                lambda: fs.fused_bn_relu_pool(y, *params),
+                lambda: fs.bn_relu_pool_plain(y, *params),
+                lambda: unfused_stem(y, *params)))
+            bound, by = stem_bound_ms(y, shape[1], dtype)
+            shape_rec = dict(name=name, shape=list(shape), ms=t_k,
+                             plain_ms=t_p, unfused_ms=t_u, bound_ms=bound,
+                             bound_by=by)
+            line = (f"[stem] bf16 {name:8s} (N,C,H,W)={shape} device: kernel "
+                    f"{t_k:.4f} ms  plain {t_p:.4f} ms  unfused (3 library "
+                    f"calls) {t_u:.4f} ms  bound {bound:.5f} ms ({by})")
+            if name in f32:
+                shape_rec["f32_ms"], shape_rec["f32_bound_ms"] = f32[name]
+                line += (f"; float32 kernel {f32[name][0]:.4f} ms, bound "
+                         f"{f32[name][1]:.5f} ms")
+            log(line)
+            record["per_shape"].append(shape_rec)
+            if name in FLAGSHIP_STEMS:
+                for key, t in (("ms", t_k), ("plain_ms", t_p),
+                               ("unfused_ms", t_u), ("bound_ms", bound)):
+                    record[key] += t
+                record["f32_ms"] += f32[name][0]
+                record["f32_bound_ms"] += f32[name][1]
+                parts[by] += bound
             del y, params
             torch.cuda.empty_cache()
     record["bound_by"] = max(parts, key=parts.get)
     log(f"[stem] per flagship request (3 launches, bf16): kernel "
         f"{record['ms']:.4f} ms, plain {record['plain_ms']:.4f} ms, unfused "
-        f"{record['unfused_ms']:.4f} ms, bound {record['bound_ms']:.5f} ms")
+        f"{record['unfused_ms']:.4f} ms, bound {record['bound_ms']:.5f} ms; "
+        f"float32 (int8 requests) kernel {record['f32_ms']:.4f} ms, bound "
+        f"{record['f32_bound_ms']:.5f} ms")
     return record
 
 
@@ -1735,12 +1839,13 @@ def main() -> int:
     src = "oaprogressionmmf_torch/ops/csrc/"
     kernels = [dict(
         name="flash_fwd", route="cuda", source=src + "flash_fwd.cu",
+        design=FWD_DESIGN,
         replaces="oaprogressionmmf_tpu/ops/flash_attention.py:54",
         launches=launches, launches_train=train_counts[0],
         max_abs_err=flash["max_abs_err"], ms=flash["ms"],
         plain_ms=flash["plain_ms"], bound_ms=flash["bound_ms"],
         bound_by=flash["bound_by"], library_ms=flash["library_ms"],
-        per_n=flash["per_n"])]
+        per_n=flash["per_n"], d276=flash["d276"])]
     for kern, line, count in (("dq", 155, train_counts[1]),
                               ("dkv", 193, train_counts[2])):
         rec = bwd[kern]
@@ -1755,6 +1860,7 @@ def main() -> int:
             per_n=rec["per_n"], d276=rec["d276"]))
     kernels.append(dict(
         name="bn_relu_pool", route="cuda", source=src + "bn_pool.cu",
+        design=STEM_DESIGN,
         replaces="oaprogressionmmf_tpu/ops/fused_stem.py:34",
         launches=stem_launches, launches_per_request=stem_launches / REQUESTS,
         launches_train=0, max_abs_err=stem["max_abs_err"], ms=stem["ms"],
@@ -1763,7 +1869,8 @@ def main() -> int:
                          "library calls; no single PyTorch call computes "
                          "this function",
         bound_ms=stem["bound_ms"], bound_by=stem["bound_by"],
-        library_ms=None, per_shape=stem["per_shape"]))
+        library_ms=None, f32_ms=stem["f32_ms"],
+        f32_bound_ms=stem["f32_bound_ms"], per_shape=stem["per_shape"]))
     k5_launches = int8["int8-all"]["launches"]["K5"]
     kernels.append(dict(
         name="int8_conv2d", route="cuda", source=src + "int8_conv.cu",

@@ -3,7 +3,8 @@
 Port of ``oaprogressionmmf_tpu/ops/flash_attention.py``:
 
   * :func:`flash_attention` — the hand-written CUDA forward kernel
-    (``csrc/flash_fwd.cu``, replacing the TPU's ``_flash_fwd_kernel``):
+    (``csrc/flash_fwd.cu``, replacing the TPU's ``_flash_fwd_kernel``;
+    bf16 on the tensor cores with ``wgmma``, float32 on the CUDA cores):
     online softmax, scores never written to device memory, returns the
     output and the per-row logsumexp. When a grad is needed it goes
     through :class:`FlashAttention`, whose backward is
@@ -116,7 +117,7 @@ def _lib(name: str) -> ctypes.CDLL:
     lib = _build.load(name)
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     if name == "flash_fwd":
-        lib.flash_fwd.argtypes = [ptr] * 5 + [i32] * 4 + [f32, ptr]
+        lib.flash_fwd.argtypes = [ptr] * 5 + [i32] * 5 + [f32, ptr]
         lib.flash_fwd.restype = i32
     else:
         lib.flash_bwd_dq.argtypes = [ptr] * 8 + [i32] * 4 + [f32, ptr]
@@ -166,18 +167,26 @@ def _launch(kernel: str, t: torch.Tensor, *args) -> None:
         raise RuntimeError(f"{kernel} launch failed: CUDA error {err}")
 
 
-def _flash_fwd(q, k, v, scale):
-    if _on_cpu(q, k, v):
-        return flash_attention_plain(q, k, v, scale)
+def launch_fwd(q, k, v, scale, layout: int = 0):
+    """K1 alone on CUDA tensors: (out, lse). ``layout`` (bf16 only): the
+    query rows a block owns, 1 for 64, 2 for 128 (D ≤ 256, N > 64), 0
+    (what the port runs) for 128 where that grid has a block for every SM,
+    else 64. Counts ``flash_attention.launches``."""
     _check_kernel_inputs(q, k, v)
     b, h, n, d = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
     _launch("flash_fwd", q, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             out.data_ptr(), lse.data_ptr(), b * h, n, d,
-            int(q.dtype == torch.bfloat16), float(scale))
+            int(q.dtype == torch.bfloat16), layout, float(scale))
     flash_attention.launches += 1
     return out, lse
+
+
+def _flash_fwd(q, k, v, scale):
+    if _on_cpu(q, k, v):
+        return flash_attention_plain(q, k, v, scale)
+    return launch_fwd(q, k, v, scale)
 
 
 def _check_lse(lse, q):

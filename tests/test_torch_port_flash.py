@@ -27,8 +27,11 @@ def _qkv(b, h, n, d, seed):
     return tuple(rng.randn(b, h, n, d).astype(np.float32) for _ in range(3))
 
 
+# (65, 256), (129, 256), (65, 276): the bf16 kernel's 64-row tile edges,
+# where the last tile holds one row, and DenseNet-161's padded width
 @pytest.mark.parametrize("n,d", [(25, 32), (64, 32), (92, 32), (130, 32),
-                                 (92, 256)])
+                                 (92, 256), (65, 256), (129, 256),
+                                 (65, 276)])
 def test_plain_matches_jax_flash_and_lse(n, d):
     b, h = 2, 2
     q, k, v = _qkv(b, h, n, d, seed=n)
@@ -90,6 +93,31 @@ def test_bf16_plain_rounds_p_like_the_kernel():
     assert got.dtype == torch.bfloat16
     np.testing.assert_allclose(got.float().numpy(),
                                np.asarray(want, np.float32), atol=3e-2)
+
+
+@pytest.mark.parametrize("n,d", [(25, 256), (65, 256), (129, 256),
+                                 (65, 276)])
+def test_bf16_plain_matches_the_jax_kernel(n, d):
+    """bf16 (the tensor-core kernel's type) against the JAX kernel in
+    interpret mode on the same inputs, at the bars chip_smoke.py holds the
+    CUDA kernel to: O within min(3e-2, 2e-2·max|O|), lse within 1e-4.
+    Both round P to bf16 before P·V; they differ by where a block's
+    running max rounds P and by float32 reassociation."""
+    b, h = 2, 2
+    q, k, v = _qkv(b, h, n, d, seed=n + d)
+    scale = (h * d) ** -0.5
+    jq, jk, jv = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v))
+    with jax.default_matmul_precision("highest"):
+        want, lse = jax_flash_mod._flash_fwd(jq, jk, jv, scale, 128, 128,
+                                             True)
+    got, got_lse = port.flash_attention_plain(
+        *(torch.from_numpy(a).bfloat16() for a in (q, k, v)), scale)
+    assert got.dtype == torch.bfloat16
+    want = np.asarray(want, np.float32)
+    bar = min(3e-2, 2e-2 * np.abs(want).max())
+    np.testing.assert_allclose(got.float().numpy(), want, atol=bar, rtol=0)
+    np.testing.assert_allclose(got_lse.reshape(b * h, n).numpy(),
+                               np.asarray(lse)[:, :n, 0], atol=1e-4, rtol=0)
 
 
 @pytest.mark.parametrize("bad", ["dtype", "head_dim", "shape", "device"])

@@ -48,8 +48,11 @@ def _bf16_ulp(x: np.ndarray) -> np.ndarray:
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+# (2, 33, 31, 20): C not a multiple of 8 (the CUDA kernel's scalar path)
+# at odd H and W; (2, 11, 13, 96): DenseNet-161's stem width at odd H, W
 @pytest.mark.parametrize("shape", [(4, 16, 16, 8), (3, 15, 17, 8),
-                                   (2, 9, 12, 96)])
+                                   (2, 9, 12, 96), (2, 33, 31, 20),
+                                   (2, 11, 13, 96)])
 def test_plain_version_matches_the_jax_kernel(shape, dtype):
     y, params = _inputs(*shape, seed=sum(shape))
     jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
