@@ -93,7 +93,24 @@ Phases (any failure exits non-zero; nothing is caught):
  5b. one float32 (no TF32, deterministic cuDNN) step at batch 2 without
      dropout through K1/K2/K3 against the same step with every Attention
      on the plain attention: loss and every parameter's Adam first moment
-     (0.1 of its gradient) compared.
+     (0.1 of its gradient) compared;
+  6. the training loop, ProgressionTrainer.fit, on the full-width flagship
+     in bf16 with prog_fus.yaml's training and validation settings, over
+     an in-memory dataset of 32 synthetic knees at the prepared sizes (16
+     to train, batch 8; 16 to validate, batch 16): trainer A trains epoch
+     0 (2 steps, 1 validation batch) and writes its checkpoint (~4.8 GB,
+     the JAX layout) to a temporary directory; trainer B resumes from it
+     at epoch 1 with every parameter, BatchNorm statistic and Adam moment
+     equal to A's bit for bit, then trains epoch 1 with every launch count
+     set to 0 just before and read just after (K1 36, K2 24, K3 24, K4 3,
+     K5 0); the inputs of the first K1 and K4 launch at each shape of that
+     epoch (K1 at (8, 8, N, 256) for the steps and (16, 8, N, 256) for the
+     validation batch, N in {25, 64, 92}; K4 at the batch-16 stems, bf16
+     with the float32 BatchNorm of an autocast model) are kept and each
+     kernel is held against its plain version on them, as in phases 3
+     and 3c; ms per step inside fit against phase 5's bare step, the
+     loader's wait, validation ms per batch, checkpoint bytes and write
+     and read seconds, peak device memory.
 
 Prints progress lines, then a JSON line of kernel records (with the
 per-length times behind each sum), the card line,
@@ -103,6 +120,7 @@ non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import gc
 import importlib
@@ -334,6 +352,44 @@ LOSS_RTOL = 1e-5
 # outputs the flagship discards): zero grads, so only the weight decay
 # moves them, and a tensor that is all zeros stays where it is
 UNREACHED = ("_agg_1.mlp_head0.", "_agg_2.mlp_head0.")
+
+# phase 6: ProgressionTrainer.fit with prog_fus.yaml's training and
+# validation subtrees (the folds, epochs and paths set for the run)
+FIT_TRAIN_KNEES = 16
+FIT_VAL_KNEES = 16
+FIT_SEED = 11
+FIT_CONFIG = {
+    "data": {"modals_all": MODALS,
+             "sets": {"n0": {"name": "oai", "modals": MODALS,
+                             "frac_classw": 1.0}},
+             "target": "prog_kl_48", "exclude_surg": False,
+             "exclude_inj": False, "ignore_cache": False, "debug": False},
+    "training": {
+        "loss": {"name": "FocalLoss",
+                 "params": {"reduction": "mean", "gamma": 2.0}},
+        "optim": {"name": "Adam", "lr_init": 1e-4, "weight_decay": 1e-4},
+        "sched": {"name": "CustomWarmupStaticDecayLR",
+                  "params": {"epochs_warmup": 5, "epochs_static": 100,
+                             "epochs_decay": 1}},
+        "sampler": "weighted", "batch_size": 8, "epochs": {"num": 1},
+        "folds": {"num": 5, "idx": 0, "ignore": None}, "debug": False,
+        "augment_full_res": True, "ckpt_backend": "msgpack",
+        "steps_per_dispatch": 1},
+    "validation": {"criterion": "avg_precision", "batch_size": 16,
+                   "debug": False},
+    "testing": {"batch_size": 16},
+    "runtime": {"compute_dtype": "bfloat16"},
+    "num_workers": 8, "loader_backend": "threads",
+    "seed_trainval_test": 0, "seed_train_val": 0, "site_test": "D",
+}
+# launches over trainer B's epoch: 2 training steps (K1, K2, K3 12 each)
+# and 1 validation batch (K1 12, K4 3, the eval stems)
+FIT_LAUNCHES = {"K1": 12 * 3, "K2": 12 * 2, "K3": 12 * 2, "K4": 3, "K5": 0}
+# tags the JAX package's ProgressionTrainer writes for each epoch
+FIT_TAGS = ("fold_0/loss_prog_batch/train", "fold_0/loss_prog_batch/val",
+            "fold_0/train/loss_prog", "fold_0/val/loss_prog",
+            "fold_0/val/avg_precision", "fold_0/val/roc_auc",
+            "fold_0/learning_rate")
 
 
 def log(msg: str) -> None:
@@ -734,9 +790,9 @@ def stem_inputs(shape, dtype, gen):
     return y.permute(0, 3, 1, 2), tuple(p.to(dtype) for p in params)
 
 
-def unfused_stem(y, weight, bias, mean, var):
+def unfused_stem(y, weight, bias, mean, var, eps: float = 1e-5):
     """The eager stem: three library calls."""
-    z = F.batch_norm(y, mean, var, weight, bias, False, 0.0, 1e-5)
+    z = F.batch_norm(y, mean, var, weight, bias, False, 0.0, eps)
     return F.max_pool2d(F.relu(z), 3, 2, 1)
 
 
@@ -746,12 +802,12 @@ def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
     return torch.exp2(torch.floor(torch.log2(mag)) - 7)
 
 
-def check_stem(name: str, y, params) -> float:
+def check_stem(name: str, y, params, eps: float = 1e-5) -> float:
     """K4 against its plain version (and, in bf16, the unfused stem) on the
     same card and inputs; returns max|Δ| and exits outside a bar."""
     fs = stem_module()
-    out = fs.fused_bn_relu_pool(y, *params)
-    want = fs.bn_relu_pool_plain(y, *params)
+    out = fs.fused_bn_relu_pool(y, *params, eps)
+    want = fs.bn_relu_pool_plain(y, *params, eps)
     torch.cuda.synchronize()
     diff = (out.float() - want.float()).abs()
     err = diff.max().item()
@@ -766,10 +822,11 @@ def check_stem(name: str, y, params) -> float:
     ok = ok and out.shape == want.shape and out.is_contiguous(
         memory_format=torch.channels_last)
     line = (f"[stem] {str(y.dtype)[6:]:8s} {name:8s} (N,C,H,W)="
-            f"{tuple(y.shape)} -> {tuple(out.shape)} max|d|={err:.3e} "
+            f"{tuple(y.shape)} -> {tuple(out.shape)} BatchNorm "
+            f"{str(params[0].dtype)[6:]} max|d|={err:.3e} "
             f"(bar {bar}, max|out| {peak:.3e})")
     if y.dtype == torch.bfloat16:
-        err_u = (out.float() - unfused_stem(y, *params).float()) \
+        err_u = (out.float() - unfused_stem(y, *params, eps).float()) \
             .abs().max().item()
         ok = ok and err_u <= STEM_UNFUSED_RTOL * peak
         line += (f"; unfused bf16 stem max|d|={err_u:.3e} (bar "
@@ -1672,7 +1729,7 @@ def train_runtime(sd: dict, model_cfg: dict, dtype):
 
 def phase_train(card: str, sd: dict) -> tuple:
     """The full-width bf16 training step (phase 5); returns the launch
-    counts of the timed steps."""
+    counts of the timed steps and their mean ms per step."""
     t0 = time.perf_counter()
     rt = train_runtime(sd, MODEL_CFG, torch.bfloat16)
     torch.cuda.synchronize()
@@ -1742,7 +1799,7 @@ def phase_train(card: str, sd: dict) -> tuple:
         f"{peak_gb:.2f} GB  [{card}]")
     device_breakdown(lambda: rt.train_step(xs, ys, gen)[0].item(),
                      float(lat.mean()), what="training step")
-    return counts
+    return counts, float(lat.mean())
 
 
 def phase_train_check(sd: dict) -> None:
@@ -1799,6 +1856,232 @@ def phase_train_check(sd: dict) -> None:
                          f"step: loss rel {d_loss:.2e}, tensors {failed[:8]}")
 
 
+class SynthKnees:
+    """An in-memory dataset of synthetic knees at the prepared sizes of
+    ``model_cfg`` (the flagship's: XR 700² and DESS 320²×128 uint8, T2
+    320²×25 float32, 9 clinical values). Sample ``idx`` is drawn in
+    ``get`` from ``default_rng([seed, idx])``; the labels are a seeded
+    permutation with half of each class."""
+
+    def __init__(self, seed: int, count: int, model_cfg: dict):
+        self.seed = seed
+        self.count = count
+        self.sizes = [tuple(s) for s in model_cfg["input_size"]]
+        self.labels = np.random.default_rng([seed, count]).permutation(
+            np.arange(count) % 2).astype(np.int32)
+
+    def __len__(self):
+        return self.count
+
+    def targets(self) -> np.ndarray:
+        return self.labels
+
+    def get(self, idx: int, epoch: int = 0) -> dict:
+        rng = np.random.default_rng([self.seed, idx])
+        xr, dess, t2, _ = self.sizes
+        clin = rng.standard_normal((1, 9), dtype=np.float32)
+        return {
+            "image__xr_pa": rng.integers(0, 256, (1, *xr), dtype=np.uint8),
+            "image__sag_3d_dess": rng.integers(0, 256, (1, *dess),
+                                               dtype=np.uint8),
+            "image__sag_t2_map": rng.random((1, *t2),
+                                            dtype=np.float32) * 0.1,
+            "image__clin": clin, "clin_vec": clin[0],
+            "target": self.labels[idx:idx + 1],
+            "exam_knee_id": f"synth{self.seed}__{idx:03d}"}
+
+
+def fit_state(trainer) -> dict:
+    """Every parameter, buffer (BatchNorm statistics) and optimizer moment
+    of a trainer's runtime, by name, on the card."""
+    rt = trainer.runtime
+    state = dict(rt.model.state_dict())
+    for key, tensors in rt.optimizer_state().items():
+        state.update({f"{key}:{n}": t for n, t in tensors.items()})
+    return state
+
+
+@contextlib.contextmanager
+def kernel_inputs():
+    """Keep a copy of the inputs of the first K1 and K4 launch at each
+    shape and type the path gives them. The FeaT's and the stems' calls
+    of the wrappers are wrapped in turn (the wrappers and their counts
+    stay as they are); yields {(kernel, shape, types): inputs}."""
+    from oaprogressionmmf_torch.models import feat, resnet
+    fa, fs = flash_module(), stem_module()
+    real_flash, real_stem = feat.flash_attention, resnet.stem_epilogue
+    seen = {}
+
+    def flash(q, k, v, scale=None):
+        before = fa.flash_attention.launches
+        out = real_flash(q, k, v, scale)
+        key = ("K1", tuple(q.shape), q.dtype)
+        if fa.flash_attention.launches > before and key not in seen:
+            seen[key] = tuple(t.detach().clone() for t in (q, k, v)) \
+                + (scale,)
+        return out
+
+    def stem(y, bn, relu, pool):
+        before = fs.fused_bn_relu_pool.launches
+        out = real_stem(y, bn, relu, pool)
+        key = ("K4", tuple(y.shape), y.dtype, bn.weight.dtype)
+        if fs.fused_bn_relu_pool.launches > before and key not in seen:
+            params = (bn.weight, bn.bias, bn.running_mean, bn.running_var)
+            seen[key] = (y.detach().clone(),
+                         tuple(t.detach().clone() for t in params), bn.eps)
+        return out
+
+    feat.flash_attention, resnet.stem_epilogue = flash, stem
+    try:
+        yield seen
+    finally:
+        feat.flash_attention, resnet.stem_epilogue = real_flash, real_stem
+
+
+def check_fit_inputs(seen: dict) -> dict:
+    """K1 and K4 against their plain versions on the inputs that trainer
+    B's epoch gave them (kernel_inputs): K1 at the training steps' and the
+    validation batch's (B, 8, N, 256), K4 at the validation batch's three
+    stems. Returns each kernel's largest max|Δ|; exits outside a bar or
+    where a shape the path should give is missing."""
+    batches = (FIT_CONFIG["training"]["batch_size"],
+               FIT_CONFIG["validation"]["batch_size"])
+    want = {(b, 8, n, FLASH_D) for b in batches for n in MAIN_PATH_N}
+    got = {key[1] for key in seen if key[0] == "K1"}
+    stems = [key for key in seen if key[0] == "K4"]
+    if got != want or len(stems) != len(FLAGSHIP_STEMS):
+        raise SystemExit(f"phase 6 gave K1 {sorted(got)} (want "
+                         f"{sorted(want)}) and K4 {stems}")
+    errs = {"K1": 0.0, "K4": 0.0}
+    with torch.inference_mode():
+        for key, args in sorted(seen.items(),
+                                key=lambda item: str(item[0])):
+            if key[0] == "K1":
+                errs["K1"] = max(errs["K1"], check_flash(*args))
+            else:
+                y, params, eps = args
+                errs["K4"] = max(errs["K4"], check_stem("fit", y, params,
+                                                        eps))
+    return errs
+
+
+def phase_fit(card: str, train_ms: float) -> tuple:
+    """Train, checkpoint and resume the full-width flagship through
+    ProgressionTrainer.fit (phase 6); returns the launch counts of the
+    resumed epoch and K1's and K4's max|Δ| on that epoch's inputs."""
+    from oaprogressionmmf_torch.train.trainer import ProgressionTrainer
+    datasets = {"train": SynthKnees(FIT_SEED, FIT_TRAIN_KNEES, MODEL_CFG),
+                "val": SynthKnees(FIT_SEED + 1, FIT_VAL_KNEES, MODEL_CFG)}
+    datasets["test"] = datasets["val"]
+    for name in ("train", "val"):
+        if set(datasets[name].targets()) != {0, 1}:
+            raise SystemExit(f"the {name} knees lack a class")
+    with tempfile.TemporaryDirectory(prefix="fit_") as tmp:
+        cfg = copy.deepcopy(FIT_CONFIG)
+        cfg["model"] = copy.deepcopy(MODEL_CFG)
+        cfg["path_experiment_root"] = tmp
+        log(f"[fit] checkpoints in {tmp}: "
+            f"{shutil.disk_usage(tmp).free / 1e9:.1f} GB free")
+        t0 = time.perf_counter()
+        first = ProgressionTrainer(cfg, 0, datasets=datasets)
+        summary = first.fit()
+        torch.cuda.synchronize()
+        log(f"[fit] trainer A: epoch 0 in {time.perf_counter() - t0:.1f} s "
+            f"(construction included): {first.timing['train_steps']} steps, "
+            f"{first.timing['val_batches']} validation batch; best "
+            f"{summary['criterion']} {summary['best']} at epoch "
+            f"{summary['epoch']}")
+        ckpts = sorted(first.path_weights_fold.iterdir())
+        want = [f"{MODEL_CFG['name']}__fold_0__epoch_000.ckpt"]
+        if [p.name for p in ckpts] != want or summary["epoch"] != 0:
+            raise SystemExit(f"checkpoints {ckpts}, want {want}")
+        records = [json.loads(line) for line in
+                   (first.path_logs_fold / "scalars.jsonl").read_text()
+                   .splitlines()]
+        missing = sorted(set(FIT_TAGS) - {r["tag"] for r in records})
+        if missing or not all(np.isfinite(r["value"]) for r in records):
+            raise SystemExit(f"scalars.jsonl lacks {missing} or holds a "
+                             f"non-finite value")
+
+        cfg["training"]["epochs"]["num"] = 2
+        t0 = time.perf_counter()
+        resumed = ProgressionTrainer(cfg, 0, datasets=datasets)
+        torch.cuda.synchronize()
+        t_resume = time.perf_counter() - t0
+        want_state, got_state = fit_state(first), fit_state(resumed)
+        differ = [n for n, t in want_state.items()
+                  if not torch.equal(t, got_state[n])]
+        n_moments = sum(1 for n in want_state if ":" in n)
+        log(f"[fit] trainer B: resumed at epoch {resumed.start_epoch}, step "
+            f"{resumed.runtime.step}, in {t_resume:.1f} s; "
+            f"{len(want_state)} tensors ({n_moments} Adam moments) against "
+            f"A's: {len(differ)} differ (torch.equal on the card)")
+        if (resumed.start_epoch != 1 or resumed.runtime.step != 2 or differ
+                or set(want_state) != set(got_state)):
+            raise SystemExit(f"resume: epoch {resumed.start_epoch}, step "
+                             f"{resumed.runtime.step}, differ {differ[:8]}")
+        ckpt_bytes = first.timing["ckpt_bytes"]
+        write_s, read_s = first.timing["ckpt_write"], \
+            resumed.timing["ckpt_read"]
+        # A's freed blocks stay in the allocator's cache for B's steps
+        del first, want_state, got_state
+        gc.collect()
+
+        step_ms = []
+        bare_step = resumed.runtime.train_step
+
+        def timed_step(*args, **kwargs):
+            t = time.perf_counter()
+            out = bare_step(*args, **kwargs)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t) * 1e3)
+            return out
+
+        resumed.runtime.train_step = timed_step
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        with kernel_inputs() as seen:
+            summary = resumed.fit()
+        torch.cuda.synchronize()
+        fa = flash_module()
+        counts = {"K1": fa.flash_attention.launches,
+                  "K2": fa.flash_attention_bwd.launches_dq,
+                  "K3": fa.flash_attention_bwd.launches_dkv,
+                  "K4": stem_module().fused_bn_relu_pool.launches,
+                  "K5": int8_module().int8_conv2d.launches}
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        tm = resumed.timing
+        log(f"[fit] trainer B: epoch 1 ({tm['train_steps']} steps, "
+            f"{tm['val_batches']} validation batch) launches {counts} (want "
+            f"{FIT_LAUNCHES}); best {summary['criterion']} "
+            f"{summary['best']} at epoch {summary['epoch']}")
+        if counts != FIT_LAUNCHES or summary["epoch"] != 1 \
+                or not np.isfinite(summary["best"]):
+            raise SystemExit(f"fit: launches {counts}, summary {summary}")
+        errs = check_fit_inputs(seen)
+        del seen
+        steps = tm["train_steps"]
+        loop_ms = (tm["train"] - tm["loader_wait"]) / steps * 1e3
+        log(f"[fit] ms per training step inside fit: the loop less the "
+            f"loader wait {loop_ms:.2f}, each step {step_ms} (synchronized) "
+            f"against phase 5's bare step {train_ms:.2f}; loader wait per "
+            f"step {tm['loader_wait'] / steps * 1e3:.2f} ms; validation "
+            f"{tm['val'] / tm['val_batches'] * 1e3:.2f} ms per batch of 16 "
+            f"(loader and metrics included); peak device memory "
+            f"{peak_gb:.2f} GB  [{card}]")
+        t0 = time.perf_counter()
+        resumed._ckpt_payload()
+        payload_s = time.perf_counter() - t0
+        log(f"[fit] checkpoint {ckpt_bytes} bytes: write {write_s:.2f} s "
+            f"(epoch 1's {tm['ckpt_write']:.2f} s, of which the payload's "
+            f"transposes and copies to the host {payload_s:.2f} s), read and "
+            f"restore {read_s:.2f} s  [{card}]")
+        del resumed
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, errs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1831,10 +2114,14 @@ def main() -> int:
     family_ms = phase_families(card)
     gc.collect()
     torch.cuda.empty_cache()
-    train_counts = phase_train(card, sd)
+    train_counts, train_ms = phase_train(card, sd)
     gc.collect()
     torch.cuda.empty_cache()
     phase_train_check(sd)
+    del sd
+    gc.collect()
+    torch.cuda.empty_cache()
+    fit_counts, fit_errs = phase_fit(card, train_ms)
 
     src = "oaprogressionmmf_torch/ops/csrc/"
     kernels = [dict(
@@ -1842,18 +2129,22 @@ def main() -> int:
         design=FWD_DESIGN,
         replaces="oaprogressionmmf_tpu/ops/flash_attention.py:54",
         launches=launches, launches_train=train_counts[0],
-        max_abs_err=flash["max_abs_err"], ms=flash["ms"],
+        launches_fit=fit_counts["K1"],
+        max_abs_err=flash["max_abs_err"], max_abs_err_fit=fit_errs["K1"],
+        ms=flash["ms"],
         plain_ms=flash["plain_ms"], bound_ms=flash["bound_ms"],
         bound_by=flash["bound_by"], library_ms=flash["library_ms"],
         per_n=flash["per_n"], d276=flash["d276"])]
-    for kern, line, count in (("dq", 155, train_counts[1]),
-                              ("dkv", 193, train_counts[2])):
+    for kern, line, count, fit in (
+            ("dq", 155, train_counts[1], fit_counts["K2"]),
+            ("dkv", 193, train_counts[2], fit_counts["K3"])):
         rec = bwd[kern]
         kernels.append(dict(
             name=f"flash_bwd_{kern}", route="cuda", source=src + "flash_bwd.cu",
             design=BWD_DESIGN[kern],
             replaces=f"oaprogressionmmf_tpu/ops/flash_attention.py:{line}",
-            launches=count, max_abs_err=rec["max_abs_err"], ms=rec["ms"],
+            launches=count, launches_fit=fit,
+            max_abs_err=rec["max_abs_err"], ms=rec["ms"],
             plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
             bound_by=rec["bound_by"], library_ms=rec["library_ms"],
             library_computes="dq, dk and dv (the whole SDPA backward)",
@@ -1863,7 +2154,9 @@ def main() -> int:
         design=STEM_DESIGN,
         replaces="oaprogressionmmf_tpu/ops/fused_stem.py:34",
         launches=stem_launches, launches_per_request=stem_launches / REQUESTS,
-        launches_train=0, max_abs_err=stem["max_abs_err"], ms=stem["ms"],
+        launches_train=0, launches_fit=fit_counts["K4"],
+        max_abs_err=stem["max_abs_err"], max_abs_err_fit=fit_errs["K4"],
+        ms=stem["ms"],
         plain_ms=stem["plain_ms"], unfused_ms=stem["unfused_ms"],
         unfused_computes="F.batch_norm (eval), F.relu, F.max_pool2d: three "
                          "library calls; no single PyTorch call computes "
@@ -1877,6 +2170,7 @@ def main() -> int:
         replaces="scripts/exp_pallas_conv.py:28", design=K5_DESIGN,
         launches=k5_launches, launches_per_request=k5_launches / REQUESTS,
         launches_int8_mode=int8["int8"]["launches"]["K5"],
+        launches_fit=fit_counts["K5"],
         max_abs_err=k5["max_abs_err"], ms=k5["ms"], plain_ms=k5["plain_ms"],
         bound_ms=k5["bound_ms"], bound_by=k5["bound_by"],
         library_ms=k5["library_ms"],

@@ -244,10 +244,12 @@ dict_schedulers = {
 def make_lr_schedule(name: str, params: dict, lr_init: float,
                      steps_per_epoch: int):
     """step → lr, epoch-quantized like torch. ReduceLROnPlateau is
-    metric-driven and has no step schedule."""
+    metric-driven and has no step schedule: the training loop drives it."""
     if name == "ReduceLROnPlateau":
-        raise ValueError("ReduceLROnPlateau is metric-driven: drive it "
-                         "with ops.schedules.ReduceLROnPlateau")
+        raise ValueError("ReduceLROnPlateau is metric-driven and has no step "
+                         "schedule: train.trainer.ProgressionTrainer drives "
+                         "it with ops.schedules.ReduceLROnPlateau after each "
+                         "validation epoch")
     factor_fn = dict_schedulers[name](**dict(params))
     absolute = getattr(factor_fn, "absolute", False)
 

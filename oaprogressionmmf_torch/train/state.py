@@ -6,7 +6,9 @@ before the moments (coupled), AdamW decays the weights apart from them.
 Each entry builds an optimizer over ``params`` with learning rate 0; the
 caller sets every group's ``lr`` to ``lr_schedule(step)`` before each
 ``step()`` (:func:`set_lr`), so the first update uses the schedule's
-value at step 0, as optax does.
+value at step 0, as optax does. :func:`optax_chain` names the optax state
+that each optimizer's torch state stands for, the layout of the JAX
+package's checkpoints.
 """
 
 from __future__ import annotations
@@ -88,3 +90,40 @@ dict_optimizers = {
     "AdamW": _adamw,
     "RMSprop": _rmsprop,
 }
+
+
+# optax field → the torch optimizer's per-parameter state key; STEP is the
+# update count, which torch keeps as the optimizer's step (Adam) or not at
+# all (SGD, RMSprop: the runtime's step)
+STEP = "step"
+
+
+def optax_chain(optimizer: torch.optim.Optimizer) -> list[dict]:
+    """The optax chain that the JAX package builds for ``optimizer``, one
+    entry per transform, in its order: each maps an optax state field to
+    the torch state key that holds it ({} for a transform without state).
+    Adam with weight decay is ``[{}, {"count": STEP, "mu": "exp_avg",
+    "nu": "exp_avg_sq"}, {"count": STEP}]``: add_decayed_weights,
+    scale_by_adam, scale_by_learning_rate."""
+    group = optimizer.param_groups[0]
+    decay = [{}] if group["weight_decay"] else []
+    adam = {"count": STEP, "mu": "exp_avg", "nu": "exp_avg_sq"}
+    trace = [{"trace": "momentum_buffer"}] if group.get("momentum") else []
+    if isinstance(optimizer, torch.optim.AdamW):
+        chain = [adam, {}]
+    elif isinstance(optimizer, torch.optim.Adam):
+        chain = decay + [adam]
+    elif isinstance(optimizer, torch.optim.SGD):
+        chain = decay + trace
+    elif isinstance(optimizer, RMSprop):
+        chain = decay + [{"nu": "square_avg"}] + trace
+    else:
+        raise TypeError(f"no optax layout for {type(optimizer).__name__}")
+    return chain + [{"count": STEP}]
+
+
+def moment_keys(optimizer: torch.optim.Optimizer) -> list[str]:
+    """The per-parameter tensors of ``optimizer``'s state, in chain
+    order."""
+    return [key for part in optax_chain(optimizer)
+            for key in part.values() if key != STEP]

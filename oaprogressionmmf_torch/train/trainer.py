@@ -2,26 +2,47 @@
 
 Port of ``oaprogressionmmf_tpu/train/trainer.py``:
 :func:`make_preprocess_fn` (train and eval branches), :func:`eval_step`
-(preprocessing → forward → softmax) and :class:`TrainRuntime`, the
-counterpart of its ``_Runtime.train_step``: augmentation → downscale →
+(preprocessing → forward → softmax), :class:`TrainRuntime`, the
+counterpart of its ``_Runtime.train_step`` (augmentation → downscale →
 forward in train mode → loss → backward → optimizer update, with the
-BatchNorm running statistics updated by the forward.
+BatchNorm running statistics updated by the forward),
+:class:`MetricsLogger` and :class:`ProgressionTrainer`, which trains one
+fold: loader threads → train steps → validation epoch → metrics → best
+checkpoint, with ReduceLROnPlateau, the NaN guard and exact resume from
+checkpoints in the JAX package's layout.
 """
 
 from __future__ import annotations
 
 import contextlib
+import json
+import logging
+import time
+from pathlib import Path
 
+import numpy as np
 import torch
 
+from ..data.pipeline import (SequentialSampler, WeightedSampler,
+                             make_batch_loader)
 from ..device import resolve_device
-from ..models import dict_models
+from ..models import MODEL_ARITY, dict_models
 from ..ops.losses import dict_losses
 from ..ops.preproc import (MODALITY_STATS, make_augment_fn,
                            sample_augment_draws)
 from ..ops.resize import interpolate
-from ..ops.schedules import make_lr_schedule
-from .state import dict_optimizers, set_lr
+from ..ops.schedules import ReduceLROnPlateau, make_lr_schedule
+from ..utils.checkpoint import (load_ckpt, load_runtime_payload,
+                                make_checkpoint_handler, runtime_payload)
+from ..utils.metrics import calc_metrics_v2
+from ..utils.pretrained import check_pretrained_fes
+from ..utils.seeding import PRNGChain
+from .state import dict_optimizers, moment_keys, set_lr
+
+logger = logging.getLogger("train")
+
+# runtime.compute_dtype → the autocast dtype
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def make_preprocess_fn(modals, downscale, train: bool, fast: bool = False):
@@ -101,10 +122,11 @@ class TrainRuntime:
     GPU unless ``device="cpu"``.
 
     ``training.steps_per_dispatch`` (a TPU dispatch trick) and
-    ``model.fe.remat`` are accepted and ignored. Not ported yet: the
-    metric-driven ReduceLROnPlateau, which the training loop drives
-    (ROADMAP item 6), and ``training.augment_full_res=false``, the JAX
-    package's post-downscale bf16 augmentation.
+    ``model.fe.remat`` are accepted and ignored. The metric-driven
+    ReduceLROnPlateau has no step schedule: the step takes ``self.lr``,
+    which :class:`ProgressionTrainer` sets after each validation epoch.
+    Not ported yet: ``training.augment_full_res=false``, the JAX package's
+    post-downscale bf16 augmentation (ROADMAP.md §1 item 7).
 
     Random numbers: augmentation draws come from the generator passed to
     :meth:`train_step`; dropout draws from the device's default generator,
@@ -127,7 +149,10 @@ class TrainRuntime:
         memory_format = (torch.channels_last if self.device.type == "cuda"
                          else torch.preserve_format)
         self.model = model.to(memory_format=memory_format).train()
-        self.params = [p for p in self.model.parameters() if p.requires_grad]
+        named = [(n, p) for n, p in self.model.named_parameters()
+                 if p.requires_grad]
+        self.param_names = [n for n, _ in named]
+        self.params = [p for _, p in named]
         self.dtype = dtype
         self.modals = list(modals)
 
@@ -141,13 +166,58 @@ class TrainRuntime:
             kwargs["weight_decay"] = float(optim_cfg["weight_decay"])
         self.optimizer = dict_optimizers[optim_cfg["name"]](self.params,
                                                             **kwargs)
-        self.lr_schedule = make_lr_schedule(
-            sched_cfg["name"], dict(sched_cfg.get("params") or {}),
-            lr_init=float(optim_cfg["lr_init"]),
-            steps_per_epoch=steps_per_epoch)
+        self.lr = float(optim_cfg["lr_init"])
+        self.lr_schedule = None
+        if sched_cfg["name"] != "ReduceLROnPlateau":
+            self.lr_schedule = make_lr_schedule(
+                sched_cfg["name"], dict(sched_cfg.get("params") or {}),
+                lr_init=self.lr, steps_per_epoch=steps_per_epoch)
         self.preprocess = make_preprocess_fn(self.modals, downscale,
                                              train=True)
         self.step = 0
+
+    def optimizer_state(self) -> dict:
+        """The optimizer's per-parameter tensors, ``{state key: {parameter
+        name: tensor}}`` for each of :func:`~.state.moment_keys`; zeros
+        before the first step, as optax initializes them."""
+        state = self.optimizer.state_dict()["state"]
+        return {key: {n: state[i][key] if i in state else
+                      torch.zeros_like(self.params[i])
+                      for i, n in enumerate(self.param_names)}
+                for key in moment_keys(self.optimizer)}
+
+    def load_optimizer_state(self, moments: dict, step: int) -> None:
+        """Set the optimizer's state to ``moments`` (as
+        :meth:`optimizer_state` gives them) after ``step`` updates, and
+        the runtime's step to ``step``. A moment that is missing or of
+        another shape than its parameter raises."""
+        names = self.param_names
+        keys = moment_keys(self.optimizer)
+        if set(moments) != set(keys):
+            raise ValueError(f"optimizer state {sorted(moments)}, expected "
+                             f"{sorted(keys)}")
+        for key in keys:
+            if set(moments[key]) != set(names):
+                missing = sorted(set(names) ^ set(moments[key]))
+                raise ValueError(f"{key}: parameters differ, e.g. "
+                                 f"{missing[:3]}")
+            for n, p in zip(names, self.params):
+                if moments[key][n].shape != p.shape:
+                    raise ValueError(f"{key} of {n}: shape "
+                                     f"{tuple(moments[key][n].shape)}, "
+                                     f"parameter {tuple(p.shape)}")
+        # torch's Adam and AdamW count their steps per parameter
+        with_step = isinstance(self.optimizer,
+                               (torch.optim.Adam, torch.optim.AdamW))
+        state = {}
+        for i, n in enumerate(names):
+            state[i] = {key: moments[key][n] for key in keys}
+            if with_step:
+                state[i]["step"] = torch.tensor(float(step))
+        self.optimizer.load_state_dict(
+            {"state": state,
+             "param_groups": self.optimizer.state_dict()["param_groups"]})
+        self.step = int(step)
 
     def to_device(self, xs) -> tuple:
         return tuple(torch.as_tensor(x).to(self.device, non_blocking=True)
@@ -186,8 +256,339 @@ class TrainRuntime:
         for p in self.params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-        set_lr(self.optimizer, self.lr_schedule(self.step))
+        set_lr(self.optimizer, self.lr if self.lr_schedule is None
+               else self.lr_schedule(self.step))
         self.optimizer.step()
         self.optimizer.zero_grad(set_to_none=True)
         self.step += 1
         return loss.detach(), logits.detach()
+
+
+class MetricsLogger:
+    """JSONL scalar log, ``scalars.jsonl`` in ``path_dir``: one
+    ``{"tag", "value", "step"}`` object per line, the JAX package's tags.
+    (The JAX package also writes TensorBoard when it is installed; the
+    port does not.)"""
+
+    def __init__(self, path_dir):
+        self.path_dir = Path(path_dir)
+        self.path_dir.mkdir(parents=True, exist_ok=True)
+        self._fh = open(self.path_dir / "scalars.jsonl", "a")
+
+    def scalar(self, tag: str, value, step: int):
+        self._fh.write(json.dumps(
+            {"tag": tag, "value": float(value), "step": int(step)}) + "\n")
+
+    def flush(self):
+        self._fh.flush()
+
+    def close(self):
+        if not self._fh.closed:
+            self._fh.close()
+
+
+def _modality_xs(batch: dict, modals) -> tuple:
+    return tuple(batch[f"image__{m}"] for m in modals)
+
+
+class ProgressionTrainer:
+    """Model, optimizer, loss, loaders and checkpoints of one fold.
+
+    ``config`` is the JAX package's config as a plain nested dict (its
+    ``Config.to_dict()``). ``datasets`` is None, to build the fold's
+    train/val/test datasets through the provider (pandas, as the JAX
+    trainer does), or a dict ``train``/``val``/``test`` (and ``sel`` for
+    ``data.debug``) of objects with ``get(idx, epoch)``, ``__len__`` and
+    ``targets()``. ``runtime.compute_dtype`` selects the autocast dtype.
+    The trainer runs on ``device``, the GPU unless ``device="cpu"``.
+
+    Random streams are a pure function of (seed, epoch, step), so that a
+    resumed run equals an unbroken one: the augmentation draws of a step
+    come from a generator seeded from (``seed_train_val`` + 1000, epoch,
+    step, 0), JAX's base seed, and its dropout from the device's default
+    generator seeded from (…, 1) for the step (the caller's generator
+    state is restored after it); the crops from the dataset's (seed,
+    epoch, index) and the order from the sampler's (seed, epoch). The
+    initial weights come from torch's initialization under seed 0. The
+    bits differ from the JAX package's ``jax.random`` streams.
+
+    ``timing`` accumulates seconds: ``loader_wait`` (the loop blocked on
+    the loader's queue), ``train`` and ``val`` (the epochs' loops, waits
+    included), ``ckpt_write``, ``ckpt_read``; and counts ``train_steps``,
+    ``val_batches`` and ``ckpt_bytes`` (the last file written)."""
+
+    def __init__(self, config: dict, fold_idx: int, *, device=None,
+                 datasets=None):
+        self.device = resolve_device(device)
+        self.config = config
+        self.fold_idx = fold_idx
+        model_cfg, train_cfg = config["model"], config["training"]
+
+        ds_cfg = next(iter(config["data"]["sets"].values()))
+        self.modals = list(ds_cfg["modals"])
+        if datasets is None:
+            from ..data.provider import prepare_datasets
+            datasets = prepare_datasets(config, fold_idx)[ds_cfg["name"]]
+        self.datasets = datasets
+        if config["data"].get("debug", False):
+            self.datasets["sel"].describe()
+
+        arity = MODEL_ARITY[model_cfg["name"]]
+        if arity != len(self.modals):
+            raise ValueError(f"Model {model_cfg['name']} expects {arity} "
+                             f"modalities, got {self.modals}")
+
+        train_ds = self.datasets["train"]
+        if train_cfg["sampler"] == "weighted":
+            sampler = WeightedSampler(train_ds.targets(),
+                                      seed=config["seed_train_val"])
+        elif train_cfg["sampler"] == "default":
+            sampler = SequentialSampler(len(train_ds))
+        else:
+            raise ValueError(f"Invalid sampler {train_cfg['sampler']}")
+        nw = int(config.get("num_workers", 8))
+        lb = config.get("loader_backend", "threads")
+        pin = self.device.type == "cuda"
+
+        def loader(name, smp, batch_size, **kw):
+            return make_batch_loader(lb, self.datasets[name], smp,
+                                     int(batch_size), num_workers=nw,
+                                     pin_memory=pin, **kw)
+
+        self.loaders = {
+            "train": loader("train", sampler, train_cfg["batch_size"],
+                            drop_last=True),
+            "val": loader("val", SequentialSampler(len(self.datasets["val"])),
+                          config["validation"]["batch_size"], drop_last=True),
+            "test": loader("test",
+                           SequentialSampler(len(self.datasets["test"])),
+                           config["testing"]["batch_size"], drop_last=False,
+                           pad_to_batch=True),
+        }
+
+        # the reference's layout: weights/prog/fold_k, logs_train/fold_k
+        root = Path(config["path_experiment_root"])
+        self.path_weights_fold = root / "weights" / "prog" / f"fold_{fold_idx}"
+        self.path_weights_fold.mkdir(parents=True, exist_ok=True)
+        self.path_logs_fold = root / "logs_train" / f"fold_{fold_idx}"
+        self.tb = MetricsLogger(self.path_logs_fold)
+        self.ckpt = make_checkpoint_handler(
+            self.path_weights_fold,
+            backend=train_cfg.get("ckpt_backend", "msgpack"))
+
+        downscale = model_cfg.get("downscale") or None
+        if downscale:
+            downscale = [list(f) for f in downscale]
+        self.steps_per_epoch = max(1,
+                                   self.loaders["train"].batches_per_epoch())
+        dtype = COMPUTE_DTYPES[config["runtime"]["compute_dtype"]]
+        with self._forked_rng():
+            torch.manual_seed(0)
+            self.runtime = TrainRuntime(config, self.modals, downscale,
+                                        self.steps_per_epoch, dtype=dtype,
+                                        device=self.device)
+        self.preprocess_eval = make_preprocess_fn(self.modals, downscale,
+                                                  train=False)
+        self.rng = PRNGChain(config["seed_train_val"] + 1000)
+
+        # the metric-driven LR controller (ReduceLROnPlateau)
+        self._plateau = None
+        sched_cfg = train_cfg["sched"]
+        if sched_cfg["name"] == "ReduceLROnPlateau":
+            params = dict(sched_cfg.get("params") or {})
+            params.setdefault("mode", "min" if config["validation"][
+                "criterion"] == "loss" else "max")
+            self._plateau = ReduceLROnPlateau(
+                lr_init=float(train_cfg["optim"]["lr_init"]), **params)
+
+        self.timing = dict(loader_wait=0.0, train=0.0, val=0.0,
+                           ckpt_write=0.0, ckpt_read=0.0, train_steps=0,
+                           val_batches=0, ckpt_bytes=0)
+        self._init_state()
+
+    # ------------------------------------------------------------------
+
+    def _forked_rng(self):
+        """A scope whose changes to the CPU and the trainer's device's
+        default generators are undone at its end."""
+        devices = ([self.device.index if self.device.index is not None
+                    else torch.cuda.current_device()]
+                   if self.device.type == "cuda" else [])
+        return torch.random.fork_rng(devices=devices)
+
+    def _ckpt_payload(self) -> dict:
+        """The full train state in the JAX package's checkpoint layout,
+        with the plateau controller's state where there is one."""
+        return runtime_payload(self.config["model"]["name"], self.runtime,
+                               self._plateau)
+
+    def _restore(self, path) -> None:
+        t0 = time.perf_counter()
+        load_runtime_payload(self.config["model"]["name"], self.runtime,
+                             load_ckpt(path), self._plateau)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.timing["ckpt_read"] += time.perf_counter() - t0
+
+    def _init_state(self):
+        model_cfg = self.config["model"]
+        check_pretrained_fes(model_cfg)
+        # explicit weight restore: a checkpoint payload of either package,
+        # or a reference-named torch state dict
+        if model_cfg.get("restore_weights") and model_cfg.get("path_weights"):
+            path_w = str(model_cfg["path_weights"])
+            if path_w.endswith((".pth", ".pt")):
+                sd = torch.load(path_w, map_location="cpu",
+                                weights_only=True)
+                self.runtime.model.load_state_dict(sd, strict=True)
+            else:
+                self._restore(path_w)
+            logger.info(f"Restored weights from {path_w}")
+
+        self.start_epoch = 0
+        last = self.ckpt.get_last_ckpt()
+        if last is not None:
+            self._restore(last)
+            self.start_epoch = self.runtime.step // self.steps_per_epoch
+            logger.info(f"Resumed from {last} at epoch {self.start_epoch}")
+
+    # ------------------------------------------------------------------
+
+    def train_epoch(self, epoch_idx: int) -> dict:
+        losses = []
+        steps = self.loaders["train"].batches_per_epoch()
+        debug = self.config["training"].get("debug", False)
+        t_epoch = time.perf_counter()
+        batches = self.loaders["train"].epoch(epoch_idx)
+        try:
+            for step_idx in range(steps):
+                t0 = time.perf_counter()
+                batch = next(batches)
+                self.timing["loader_wait"] += time.perf_counter() - t0
+                xs = _modality_xs(batch, self.modals)
+                ys = batch["target"][:, 0]
+                gen = self.rng.generator(epoch_idx, step_idx, 0,
+                                         device=self.device)
+                with self._forked_rng():
+                    torch.manual_seed(self.rng.seed(epoch_idx, step_idx, 1))
+                    loss, logits = self.runtime.train_step(xs, ys, gen)
+                loss = loss.item()
+                self.timing["train_steps"] += 1
+                if debug:
+                    logger.info(f"Pred: {logits.argmax(dim=1).tolist()}")
+                    logger.info(f"True: {ys.tolist()}")
+                losses.append(loss)
+                if not np.isfinite(loss):
+                    # NaN guard: fail loudly, do not train on
+                    logger.error(f"Non-finite loss at epoch {epoch_idx} "
+                                 f"step {step_idx}; stopping epoch")
+                    break
+                self.tb.scalar(f"fold_{self.fold_idx}/loss_prog_batch/train",
+                               loss, epoch_idx * steps + step_idx)
+        finally:
+            batches.close()
+        self.timing["train"] += time.perf_counter() - t_epoch
+        return {"loss_prog": float(np.mean(losses)) if losses else np.nan}
+
+    def val_epoch(self, epoch_idx: int) -> dict:
+        """The model in eval mode under ``inference_mode``: float32 logits
+        → loss and softmax; then ``calc_metrics_v2``."""
+        rt = self.runtime
+        losses, targets, probas = [], [], []
+        steps = self.loaders["val"].batches_per_epoch()
+        autocast = (torch.autocast(self.device.type, dtype=rt.dtype)
+                    if rt.dtype != torch.float32
+                    else contextlib.nullcontext())
+        t_epoch = time.perf_counter()
+        rt.model.eval()
+        try:
+            with torch.inference_mode():
+                for step_idx, batch in enumerate(
+                        self.loaders["val"].epoch(epoch_idx)):
+                    ys = batch["target"][:, 0]
+                    xs = self.preprocess_eval(rt.to_device(
+                        _modality_xs(batch, self.modals)))
+                    with autocast:
+                        out = rt.model(*xs)
+                    logits = (out["main"] if isinstance(out, dict)
+                              else out).float()
+                    loss = rt.loss_fn(logits, ys.to(self.device)).item()
+                    losses.append(loss)
+                    targets.append(ys.numpy())
+                    probas.append(torch.softmax(logits, dim=-1).cpu().numpy())
+                    self.timing["val_batches"] += 1
+                    self.tb.scalar(f"fold_{self.fold_idx}/loss_prog_batch/val",
+                                   loss, epoch_idx * steps + step_idx)
+        finally:
+            rt.model.train()
+        self.timing["val"] += time.perf_counter() - t_epoch
+        metrics = calc_metrics_v2(
+            prog_target=np.concatenate(targets),
+            prog_pred_proba=np.concatenate(probas),
+            target=self.config["data"]["target"])
+        metrics["loss_prog"] = float(np.mean(losses)) if losses else np.nan
+        return metrics
+
+    def _save(self, epoch_idx: int) -> None:
+        t0 = time.perf_counter()
+        path = self.ckpt.save_new_ckpt(
+            self._ckpt_payload(), model_name=self.config["model"]["name"],
+            fold_idx=self.fold_idx, epoch_idx=epoch_idx)
+        self.timing["ckpt_write"] += time.perf_counter() - t0
+        self.timing["ckpt_bytes"] = path.stat().st_size
+
+    def fit(self) -> dict:
+        """The epoch loop, with the best checkpoint by
+        ``validation.criterion`` (``loss``: lower is better;
+        ``b_accuracy``, ``avg_precision``: higher)."""
+        crit_name = self.config["validation"]["criterion"]
+        if crit_name == "loss":
+            crit_best, crit_rule = float("inf"), lambda new, ref: new <= ref
+        elif crit_name in ("b_accuracy", "avg_precision"):
+            crit_best, crit_rule = 0.0, lambda new, ref: new >= ref
+        else:
+            raise ValueError(f"Unknown criterion: {crit_name}")
+
+        best = {"epoch": -1, "val": {}}
+        num_epochs = int(self.config["training"]["epochs"]["num"])
+        for epoch_idx in range(self.start_epoch, num_epochs):
+            t0 = time.time()
+            metrics_train = self.train_epoch(epoch_idx)
+            metrics_val = self.val_epoch(epoch_idx)
+
+            for k, v in {**{f"train/{k}": v for k, v in metrics_train.items()},
+                         **{f"val/{k}": v
+                            for k, v in metrics_val.items()}}.items():
+                if isinstance(v, (int, float, np.floating)) \
+                        and np.isfinite(v):
+                    self.tb.scalar(f"fold_{self.fold_idx}/{k}", v, epoch_idx)
+            rt = self.runtime
+            lr_now = (self._plateau.current_lr if self._plateau is not None
+                      else float(rt.lr_schedule(rt.step)))
+            self.tb.scalar(f"fold_{self.fold_idx}/learning_rate", lr_now,
+                           epoch_idx)
+            self.tb.flush()
+            logger.info(
+                f"fold {self.fold_idx} epoch {epoch_idx}: "
+                f"train_loss={metrics_train['loss_prog']:.4f} "
+                f"val_loss={metrics_val['loss_prog']:.4f} "
+                f"val_{crit_name}="
+                f"{metrics_val.get(crit_name, metrics_val['loss_prog'])} "
+                f"({time.time() - t0:.1f}s)")
+
+            crit_curr = metrics_val["loss_prog"] if crit_name == "loss" \
+                else metrics_val[crit_name]
+            if np.isnan(crit_curr):
+                continue
+            if self._plateau is not None:
+                rt.lr = self._plateau.step(crit_curr)
+            if crit_rule(crit_curr, crit_best):
+                crit_best = crit_curr
+                best = {"epoch": epoch_idx, "val": metrics_val}
+                self._save(epoch_idx)
+
+        logger.info(f"Finished fold {self.fold_idx}: best {crit_name}="
+                    f"{crit_best} at epoch {best['epoch']}")
+        self.tb.close()
+        return {"criterion": crit_name, "best": crit_best,
+                "epoch": best["epoch"], "val_metrics": best["val"]}

@@ -9,11 +9,14 @@ inverses of its ``models/encoders.py`` converters (torchvision names for
 SqueezeNet, VGG16, DenseNet-161 and Inception v3), producing torch
 tensors; :func:`to_jax_variables` is its copy of the other direction
 (``torch_seq_fe_to_flax``, ``torch_feat_to_flax``,
-``import_reference_checkpoint``) for the ResNet families, so the port
-writes bundles the JAX package reads. :func:`load_quant_acts` and
+``import_reference_checkpoint`` and the JAX package's torchvision
+importers), for every feature extractor, so the port writes bundles and
+checkpoints the JAX package reads. :func:`load_quant_acts` and
 :func:`quant_acts_tree` carry the int8 activation statistics between the
 JAX ``quant_acts`` collection and the port's non-persistent site buffers.
-All transforms are host-side numpy.
+The transposes and copies run in torch on the device of the tensors given
+(numpy arrays are taken as CPU tensors); :func:`to_jax_variables` returns
+numpy arrays.
 """
 
 from __future__ import annotations
@@ -50,19 +53,29 @@ _SQUEEZENET_FIRE_IDX = (3, 4, 5, 7, 8, 9, 10, 12)
 _VGG16_CONV_IDX = (0, 2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26, 28)
 
 
+def _host(a) -> torch.Tensor:
+    """An array or tensor as a tensor, sharing its memory where it is
+    writable (torch's copies and transposes run on all cores; numpy's
+    on one)."""
+    if isinstance(a, torch.Tensor):
+        return a.detach()
+    a = np.asarray(a)
+    return torch.from_numpy(a if a.flags.writeable else a.copy())
+
+
 def _t(a) -> torch.Tensor:
-    """Dense kernel (in, out) → Linear weight (out, in)."""
-    return torch.from_numpy(np.array(np.asarray(a).T, order="C"))
+    """Dense kernel (in, out) → Linear weight (out, in), a copy."""
+    return _host(a).t().clone(memory_format=torch.contiguous_format)
 
 
 def _conv(w) -> torch.Tensor:
-    """Conv kernel (kh, kw, I/g, O) → (O, I/g, kh, kw)."""
-    return torch.from_numpy(np.array(
-        np.transpose(np.asarray(w), (3, 2, 0, 1)), order="C"))
+    """Conv kernel (kh, kw, I/g, O) → (O, I/g, kh, kw), a copy."""
+    return _host(w).permute(3, 2, 0, 1).clone(
+        memory_format=torch.contiguous_format)
 
 
 def _a(a) -> torch.Tensor:
-    return torch.from_numpy(np.array(a))
+    return _host(a).clone()
 
 
 def _join(prefix: str, name: str) -> str:
@@ -228,9 +241,9 @@ def feat_state_dict(p: dict, prefix: str = "") -> dict:
         norm(tr[f"prenorm_0_{d}"], f"{tp}.prenorm_0_{d}")
         norm(tr[f"prenorm_1_{d}"], f"{tp}.prenorm_1_{d}")
         attn = tr[f"attn_{d}"]
-        sd[f"{tp}.attn_{d}.to_qkv.weight"] = _t(np.concatenate(
-            [np.asarray(attn[k]["kernel"]) for k in ("to_q", "to_k", "to_v")],
-            axis=1))
+        sd[f"{tp}.attn_{d}.to_qkv.weight"] = _t(torch.cat(
+            [_host(attn[k]["kernel"]) for k in ("to_q", "to_k", "to_v")],
+            dim=1))
         dense(attn["to_out"], f"{tp}.attn_{d}.to_out.0")
         dense(tr[f"ff_{d}"]["Dense_0"], f"{tp}.ff_{d}.net.0")
         dense(tr[f"ff_{d}"]["Dense_1"], f"{tp}.ff_{d}.net.3")
@@ -247,7 +260,8 @@ def feat_state_dict(p: dict, prefix: str = "") -> dict:
 
 def from_jax_variables(model_name: str, variables: dict) -> dict:
     """JAX ``{"params", "batch_stats"}`` numpy tree → the port's state
-    dict for ``dict_models[model_name]``.
+    dict for ``dict_models[model_name]``. Leaves may also be tensors: the
+    transposes then run on their device.
 
     Without ``batch_stats`` only the parameters are mapped: that carries
     any tree of the parameters' structure across by name, e.g. optax's
@@ -292,13 +306,19 @@ def _np(t) -> np.ndarray:
 
 
 def _t_np(w) -> np.ndarray:
-    """Linear weight (out, in) → dense kernel (in, out)."""
-    return np.ascontiguousarray(_np(w).T)
+    """Linear weight (out, in) → dense kernel (in, out); a tensor is
+    transposed on its own device."""
+    if isinstance(w, torch.Tensor):
+        return _np(w.detach().t().contiguous())
+    return np.ascontiguousarray(np.asarray(w).T)
 
 
 def _conv_np(w) -> np.ndarray:
-    """Conv weight (O, I/g, kh, kw) → kernel (kh, kw, I/g, O)."""
-    return np.ascontiguousarray(np.transpose(_np(w), (2, 3, 1, 0)))
+    """Conv weight (O, I/g, kh, kw) → kernel (kh, kw, I/g, O); a tensor is
+    transposed on its own device."""
+    if isinstance(w, torch.Tensor):
+        return _np(w.detach().permute(2, 3, 1, 0).contiguous())
+    return np.ascontiguousarray(np.transpose(np.asarray(w), (2, 3, 1, 0)))
 
 
 def _put(tree: dict, path, value) -> None:
@@ -308,40 +328,132 @@ def _put(tree: dict, path, value) -> None:
     node[path[-1]] = value
 
 
-def fe_variables(sd: dict, prefix: str) -> tuple[dict, dict]:
-    """The port's ResNet FE keys under ``prefix`` → (flax params,
-    batch_stats) of the JAX ResNetFE (``torch_seq_fe_to_flax``)."""
-    if f"{prefix}.4.0.conv1.weight" not in sd:
-        raise NotImplementedError(
-            f"to_jax_variables maps ResNet feature extractors only; "
-            f"{prefix!r} is another encoder")
-    params: dict = {}
-    stats: dict = {}
-
-    def bn(path, src):
-        _put(params, path + ("scale",), _np(sd[f"{src}.weight"]))
-        _put(params, path + ("bias",), _np(sd[f"{src}.bias"]))
+def _bn_variables(params: dict, stats: dict, sd: dict, path: tuple,
+                  src: str) -> None:
+    """A torch BatchNorm's keys under ``src`` → flax scale/bias (and
+    mean/var where the state dict holds running statistics)."""
+    _put(params, path + ("scale",), _np(sd[f"{src}.weight"]))
+    _put(params, path + ("bias",), _np(sd[f"{src}.bias"]))
+    if f"{src}.running_mean" in sd:
         _put(stats, path + ("mean",), _np(sd[f"{src}.running_mean"]))
         _put(stats, path + ("var",), _np(sd[f"{src}.running_var"]))
 
-    _put(params, ("conv1", "kernel"), _conv_np(sd[f"{prefix}.0.weight"]))
-    bn(("bn1",), f"{prefix}.1")
+
+def _conv_variables(params: dict, sd: dict, path: tuple, src: str) -> None:
+    """A torch conv's weight (and bias) → flax kernel (and bias)."""
+    _put(params, path + ("kernel",), _conv_np(sd[f"{src}.weight"]))
+    if f"{src}.bias" in sd:
+        _put(params, path + ("bias",), _np(sd[f"{src}.bias"]))
+
+
+def fe_variables(sd: dict, prefix: str) -> tuple[dict, dict]:
+    """The port's ResNet FE keys under ``prefix`` → (flax params,
+    batch_stats) of the JAX ResNetFE (``torch_seq_fe_to_flax``)."""
+    params: dict = {}
+    stats: dict = {}
+    _conv_variables(params, sd, ("conv1",), f"{prefix}.0")
+    _bn_variables(params, stats, sd, ("bn1",), f"{prefix}.1")
     for seq_idx, layer in _SEQ_IDX_TO_LAYER.items():
         b = 0
         while f"{prefix}.{seq_idx}.{b}.conv1.weight" in sd:
             src, dst = f"{prefix}.{seq_idx}.{b}", f"{layer}_{b}"
             ci = 0
             while f"{src}.conv{ci + 1}.weight" in sd:
-                _put(params, (dst, f"Conv_{ci}", "kernel"),
-                     _conv_np(sd[f"{src}.conv{ci + 1}.weight"]))
-                bn((dst, f"BatchNorm_{ci}"), f"{src}.bn{ci + 1}")
+                _conv_variables(params, sd, (dst, f"Conv_{ci}"),
+                                f"{src}.conv{ci + 1}")
+                _bn_variables(params, stats, sd, (dst, f"BatchNorm_{ci}"),
+                              f"{src}.bn{ci + 1}")
                 ci += 1
             if f"{src}.downsample.0.weight" in sd:
-                _put(params, (dst, "downsample_conv", "kernel"),
-                     _conv_np(sd[f"{src}.downsample.0.weight"]))
-                bn((dst, "downsample_bn"), f"{src}.downsample.1")
+                _conv_variables(params, sd, (dst, "downsample_conv"),
+                                f"{src}.downsample.0")
+                _bn_variables(params, stats, sd, (dst, "downsample_bn"),
+                              f"{src}.downsample.1")
             b += 1
     return params, stats
+
+
+def squeezenet_variables(sd: dict, prefix: str) -> tuple[dict, dict]:
+    """torchvision SqueezeNet 1.0 ``features.*`` keys → flax params (the
+    inverse of :func:`squeezenet_state_dict`; no BatchNorm)."""
+    params: dict = {}
+    f = _join(prefix, "features")
+    _conv_variables(params, sd, ("conv1",), f"{f}.0")
+    for fi, pos in enumerate(_SQUEEZENET_FIRE_IDX):
+        for sub in ("squeeze", "expand1x1", "expand3x3"):
+            _conv_variables(params, sd, (f"fire{fi}", sub),
+                            f"{f}.{pos}.{sub}")
+    return params, {}
+
+
+def vgg_variables(sd: dict, prefix: str) -> tuple[dict, dict]:
+    """torchvision VGG16 ``features.*`` keys → flax params (the inverse of
+    :func:`vgg_state_dict`; no BatchNorm)."""
+    params: dict = {}
+    for ci, pos in enumerate(_VGG16_CONV_IDX):
+        _conv_variables(params, sd, (f"conv{ci}",),
+                        _join(prefix, f"features.{pos}"))
+    return params, {}
+
+
+def _modules_under(sd: dict, prefix: str) -> list:
+    """The module paths (without ``.weight``) of the weights under
+    ``prefix``, in state-dict order."""
+    head = _join(prefix, "")
+    return [k[len(head):-len(".weight")] for k in sd
+            if k.startswith(head) and k.endswith(".weight")]
+
+
+def densenet_variables(sd: dict, prefix: str) -> tuple[dict, dict]:
+    """torchvision DenseNet ``features.*`` keys → (flax params,
+    batch_stats) (the inverse of :func:`densenet_state_dict`)."""
+    params: dict = {}
+    stats: dict = {}
+    f = _join(prefix, "features")
+    for mod in _modules_under(sd, f):
+        parts = mod.split(".")
+        if parts[0].startswith("denseblock"):      # denselayerL.normI/convI
+            path = (f"{parts[0]}_{parts[1].removeprefix('dense')}",
+                    parts[2])
+        elif parts[0].startswith("transition"):    # norm or conv
+            path = (f"{parts[0]}_{parts[1]}",)
+        else:                                      # conv0, norm0, norm5
+            path = (parts[0],)
+        if np.ndim(sd[f"{f}.{mod}.weight"]) == 1:
+            _bn_variables(params, stats, sd, path, f"{f}.{mod}")
+        else:
+            _conv_variables(params, sd, path, f"{f}.{mod}")
+    return params, stats
+
+
+def inception_variables(sd: dict, prefix: str) -> tuple[dict, dict]:
+    """torchvision Inception v3 keys (``Mixed_5b.branch1x1.conv.weight``,
+    ...) → (flax params, batch_stats) (the inverse of
+    :func:`inception_state_dict`)."""
+    params: dict = {}
+    stats: dict = {}
+    for mod in _modules_under(sd, prefix):
+        path = tuple(mod.split("."))
+        src = _join(prefix, mod)
+        if path[-1] == "conv":
+            _conv_variables(params, sd, path, src)
+        else:
+            _bn_variables(params, stats, sd, path, src)
+    return params, stats
+
+
+def any_fe_variables(sd: dict, prefix: str) -> tuple[dict, dict]:
+    """Any of the port's feature extractors under ``prefix`` → (flax
+    params, batch_stats); the encoder is told apart by its keys."""
+    if f"{prefix}.4.0.conv1.weight" in sd:
+        return fe_variables(sd, prefix)
+    if f"{prefix}.Conv2d_1a_3x3.conv.weight" in sd:
+        return inception_variables(sd, prefix)
+    if f"{prefix}.features.conv0.weight" in sd:
+        return densenet_variables(sd, prefix)
+    if f"{prefix}.features.3.squeeze.weight" in sd:
+        return squeezenet_variables(sd, prefix)
+    return vgg_variables(sd, prefix)
 
 
 def feat_variables(sd: dict, prefix: str) -> dict:
@@ -394,7 +506,12 @@ def feat_variables(sd: dict, prefix: str) -> dict:
 def to_jax_variables(model_name: str, state_dict: dict) -> dict:
     """The port's state dict (the reference's names) → the JAX
     ``{"params", "batch_stats"}`` numpy tree of ``model_name``; the inverse
-    of :func:`from_jax_variables` for families with ResNet FEs."""
+    of :func:`from_jax_variables`, for every feature extractor.
+
+    A state dict of the parameters only (no running statistics) maps to
+    the parameters' tree and empty ``batch_stats``: that carries any tree
+    of the parameters' structure across by name, e.g. an optimizer's
+    moments."""
     if model_name not in _FAMILY_LAYOUT:
         raise KeyError(f"{model_name!r} is not ported; ported: "
                        f"{sorted(_FAMILY_LAYOUT)}")
@@ -403,7 +520,9 @@ def to_jax_variables(model_name: str, state_dict: dict) -> dict:
     stats: dict = {}
     for subtree, prefix, kind in _FAMILY_LAYOUT[model_name]:
         if kind == "fe":
-            params[subtree], stats[subtree] = fe_variables(sd, prefix)
+            params[subtree], fe_stats = any_fe_variables(sd, prefix)
+            if fe_stats:        # BatchNorm-free encoders have no subtree
+                stats[subtree] = fe_stats
         elif kind == "feat":
             params[subtree] = feat_variables(sd, prefix)
         elif kind == "clin":

@@ -10,6 +10,7 @@ read them back into the flax tree. A narrow DenseNet (growth 8) stands in
 for DenseNet-161 in the forward comparison; it is the same module.
 """
 
+import functools
 import importlib
 
 import numpy as np
@@ -23,7 +24,8 @@ from oaprogressionmmf_tpu.models import dict_models as jax_models
 from oaprogressionmmf_tpu.models import encoders as jax_encoders
 from oaprogressionmmf_torch.models import dict_models, encoders
 from oaprogressionmmf_torch.utils.convert import (any_fe_state_dict,
-                                                  from_jax_variables)
+                                                  from_jax_variables,
+                                                  to_jax_variables)
 from torch_port_util import synth_variables
 
 RTOL = 1e-4
@@ -102,10 +104,10 @@ def test_state_dict_names_are_torchvision(arch):
     assert shapes(stats) == shapes(want.get("batch_stats", {}))
 
 
-@pytest.mark.parametrize("arch", sorted(IMPORTERS))
-def test_family_with_the_encoder_loads_strictly(arch):
-    """from_jax_variables carries a family with the encoder as its
-    ``fe.arch`` into the port; its strict load takes every key."""
+@functools.lru_cache(maxsize=None)
+def _family_with(arch):
+    """MR1CnnTrf with ``arch`` as its ``fe.arch``: its config and numpy
+    variables drawn into the JAX tree."""
     cfg = {"name": "MR1CnnTrf", "input_size": [[80, 80, 2]],
            "downscale": False, "input_channels": 1, "output_channels": 2,
            "output_type": "main", "debug": False, "restore_weights": False,
@@ -116,12 +118,39 @@ def test_family_with_the_encoder_loads_strictly(arch):
     jm = jax_models["MR1CnnTrf"](config=cfg)
     variables = synth_variables(lambda: jm.init(
         jax.random.key(0), jnp.zeros((1, 1, 80, 80, 2)), train=False))
+    return cfg, jax.tree_util.tree_map(np.asarray, dict(variables))
+
+
+@pytest.mark.parametrize("arch", sorted(IMPORTERS))
+def test_family_with_the_encoder_loads_strictly(arch):
+    """from_jax_variables carries a family with the encoder as its
+    ``fe.arch`` into the port; its strict load takes every key."""
+    cfg, variables = _family_with(arch)
     with torch.device("meta"):
         model = dict_models["MR1CnnTrf"](cfg)
     model.load_state_dict(from_jax_variables("MR1CnnTrf", variables),
                           strict=True, assign=True)
     assert model._agg.pos_embedding.shape == (
         1, 3, encoders.EXTRA_FE_OUT_CHANNELS[arch])
+
+
+@pytest.mark.parametrize("arch", sorted(IMPORTERS))
+def test_to_jax_variables_inverts_from_jax_variables(arch):
+    """A family with the encoder as its ``fe.arch``: the port's state dict
+    goes back to the same JAX tree, every leaf exact, so its checkpoints
+    and bundles can be written in the JAX layout (BatchNorm-free
+    encoders get no batch_stats subtree, as in JAX)."""
+    _, variables = _family_with(arch)
+    back = to_jax_variables("MR1CnnTrf",
+                            from_jax_variables("MR1CnnTrf", variables))
+    want = {"params": variables["params"],
+            "batch_stats": variables.get("batch_stats", {})}
+    assert jax.tree_util.tree_structure(back) == \
+        jax.tree_util.tree_structure(want)
+    for (path, got), w in zip(jax.tree_util.tree_leaves_with_path(back),
+                              jax.tree_util.tree_leaves(want)):
+        assert got.dtype == w.dtype, path
+        np.testing.assert_array_equal(got, w, err_msg=str(path))
 
 
 def test_inception_transform_input_matches_jax():

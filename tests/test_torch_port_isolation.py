@@ -16,7 +16,8 @@ import oaprogressionmmf_torch
 from oaprogressionmmf_torch import resolve_device
 from oaprogressionmmf_torch.ops import _build
 from oaprogressionmmf_torch.serving import make_predictor
-from oaprogressionmmf_torch.train.trainer import TrainRuntime
+from oaprogressionmmf_torch.train.trainer import (ProgressionTrainer,
+                                                  TrainRuntime)
 from torch_port_util import FLAGSHIP_MODALS, FLAGSHIP_SMALL
 
 REPO = Path(__file__).resolve().parents[1]
@@ -49,6 +50,25 @@ def test_port_imports_without_jax_or_the_jax_package():
         "          if m.startswith(('jax', 'flax', 'msgpack',\n"
         "                           'oaprogressionmmf_tpu'))]\n"
         "assert not leaked, leaked\n"
+        "print('ok')\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("ok")
+
+
+def test_port_imports_without_the_host_packages():
+    """The machine with the card has no pandas, scikit-learn, PyYAML or
+    PIL: every module of the port imports without them (the data layer
+    imports pandas and PIL inside the functions that read data)."""
+    code = (
+        "import importlib, sys\n"
+        "for m in ('jax', 'jaxlib', 'flax', 'msgpack',\n"
+        "          'oaprogressionmmf_tpu', 'pandas', 'sklearn', 'yaml',\n"
+        "          'PIL'):\n"
+        "    sys.modules[m] = None\n"
+        f"for m in {PORT_MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
         "print('ok')\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
@@ -103,6 +123,8 @@ def test_entry_points_raise_without_a_gpu_unless_cpu_is_asked(monkeypatch):
         TrainRuntime({"model": FLAGSHIP_SMALL, "training": {}},
                      FLAGSHIP_MODALS, FLAGSHIP_SMALL["downscale"], 1,
                      device=None)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ProgressionTrainer({"model": FLAGSHIP_SMALL}, 0, device=None)
     assert resolve_device("cpu") == torch.device("cpu")
 
 

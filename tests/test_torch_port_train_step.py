@@ -21,7 +21,6 @@ the port's own float32 gradients miss its float64 ones by up to 13% or
 """
 
 import copy
-import math
 
 import numpy as np
 import pytest
@@ -36,12 +35,13 @@ from oaprogressionmmf_tpu.ops.losses import dict_losses as jax_dict_losses
 from oaprogressionmmf_tpu.train.state import TrainState
 from oaprogressionmmf_tpu.train.trainer import (
     _shared_runtime, make_preprocess_fn as jax_make_preprocess_fn)
-from oaprogressionmmf_torch.ops.preproc import AugmentDraws
+from oaprogressionmmf_torch.ops.schedules import make_lr_schedule
 from oaprogressionmmf_torch.train.trainer import (TrainRuntime,
                                                   make_preprocess_fn)
 from oaprogressionmmf_torch.utils.convert import from_jax_variables
 from torch_port_util import (FLAGSHIP_MODALS, FLAGSHIP_SMALL,
-                             flagship_raw_inputs, synth_variables)
+                             flagship_raw_inputs, jax_augment_draws,
+                             synth_variables)
 
 NAME = "XR1MR2C1CnnTrf"
 BATCH = 8
@@ -86,27 +86,8 @@ def _config():
 
 
 def _jax_draws(key):
-    """The augmentation draws of one JAX train step with ``key``
-    (trainer.py:137,269-270; preproc.py:145-167), per modality."""
-    lo, hi = math.radians(-15.0), math.radians(15.0)
-    k_aug, _ = jax.random.split(key)
-    draws = []
-    for i, m in enumerate(FLAGSHIP_MODALS):
-        if m == "clin":
-            draws.append(None)
-            continue
-        cols = [[], [], [], []]
-        for k in jax.random.split(jax.random.fold_in(k_aug, i), BATCH):
-            k_rotp, k_theta, k_gp, k_gamma = jax.random.split(k, 4)
-            for col, v in zip(cols, (
-                    jax.random.uniform(k_rotp, ()),
-                    jax.random.uniform(k_theta, (), minval=lo, maxval=hi),
-                    jax.random.uniform(k_gp, ()),
-                    jax.random.uniform(k_gamma, (), minval=0.5,
-                                       maxval=2.0))):
-                col.append(float(v))
-        draws.append(AugmentDraws(*(torch.tensor(c) for c in cols)))
-    return draws
+    """The augmentation draws of one JAX train step with ``key``."""
+    return jax_augment_draws(key, FLAGSHIP_MODALS, BATCH)
 
 
 def _np(tree):
@@ -208,7 +189,7 @@ def first_step_f64(two_steps):
                 mutable=["batch_stats"])
             return loss_fn(out["main"], jnp.asarray(ys))
 
-        grads = jax.grad(loss_of)(v64["params"])
+        grads = jax.jit(jax.grad(loss_of))(v64["params"])
         tx = two_steps["tx"]
         _, opt = tx.update(grads, tx.init(v64["params"]), v64["params"])
         adam = next(s for s in opt if hasattr(s, "mu"))
@@ -329,8 +310,32 @@ def test_dropout_applies_only_in_train_mode(where):
     ({"sched": {"name": "ReduceLROnPlateau", "params": {}}}, ValueError),
 ], ids=["post_downscale_augment", "plateau"])
 def test_unported_training_options_are_refused(change, error):
+    """``augment_full_res=false`` is refused by the runtime, and
+    ReduceLROnPlateau as a step schedule by ``make_lr_schedule``: it is
+    metric-driven, stepped by the training loop (the runtime takes it:
+    test_runtime_takes_reduce_lr_on_plateau)."""
     cfg = _config()
     cfg["training"].update(change)
-    with pytest.raises(error):
-        TrainRuntime(cfg, FLAGSHIP_MODALS, cfg["model"]["downscale"], 1,
-                     dtype=torch.float32, device="cpu")
+    with pytest.raises(error, match="ProgressionTrainer" if "sched" in change
+                       else None):
+        if "sched" in change:
+            make_lr_schedule(change["sched"]["name"],
+                             change["sched"]["params"], 1e-4, 1)
+        else:
+            TrainRuntime(cfg, FLAGSHIP_MODALS, cfg["model"]["downscale"], 1,
+                         dtype=torch.float32, device="cpu")
+
+
+def test_runtime_takes_reduce_lr_on_plateau():
+    """Under ReduceLROnPlateau the runtime has no step schedule and steps
+    with the LR that the training loop sets (``lr``, lr_init until
+    then)."""
+    cfg = _config()
+    cfg["training"]["sched"] = {"name": "ReduceLROnPlateau", "params": {}}
+    rt = TrainRuntime(cfg, FLAGSHIP_MODALS, cfg["model"]["downscale"], 1,
+                      dtype=torch.float32, device="cpu")
+    assert rt.lr_schedule is None and rt.lr == 1e-4
+    rt.lr = 3e-5
+    rt.train_step(flagship_raw_inputs(2), np.array([0, 1]),
+                  torch.Generator().manual_seed(0))
+    assert rt.optimizer.param_groups[0]["lr"] == 3e-5

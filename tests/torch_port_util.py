@@ -139,3 +139,35 @@ def check_predictor_against_jax(cfg):
                                atol=FAMILY_ATOL)
     # the inputs reach the logits: the knees differ
     assert np.abs(want_logits[0] - want_logits[1]).max() > 1e-3
+
+
+def jax_augment_draws(key, modals, batch):
+    """The augmentation draws of one JAX train step with ``key``
+    (oaprogressionmmf_tpu/train/trainer.py:137,269-270; ops/preproc.py:
+    145-167), per modality (None for ``clin``), as the port's
+    ``AugmentDraws``: the port is handed what JAX draws."""
+    import math
+
+    import torch
+
+    from oaprogressionmmf_torch.ops.preproc import AugmentDraws
+
+    lo, hi = math.radians(-15.0), math.radians(15.0)
+    k_aug, _ = jax.random.split(key)
+    draws = []
+    for i, m in enumerate(modals):
+        if m == "clin":
+            draws.append(None)
+            continue
+        cols = [[], [], [], []]
+        for k in jax.random.split(jax.random.fold_in(k_aug, i), batch):
+            k_rotp, k_theta, k_gp, k_gamma = jax.random.split(k, 4)
+            for col, v in zip(cols, (
+                    jax.random.uniform(k_rotp, ()),
+                    jax.random.uniform(k_theta, (), minval=lo, maxval=hi),
+                    jax.random.uniform(k_gp, ()),
+                    jax.random.uniform(k_gamma, (), minval=0.5,
+                                       maxval=2.0))):
+                col.append(float(v))
+        draws.append(AugmentDraws(*(torch.tensor(c) for c in cols)))
+    return draws
