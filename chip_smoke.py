@@ -110,7 +110,29 @@ Phases (any failure exits non-zero; nothing is caught):
      kernel is held against its plain version on them, as in phases 3
      and 3c; ms per step inside fit against phase 5's bare step, the
      loader's wait, validation ms per batch, checkpoint bytes and write
-     and read seconds, peak device memory.
+     and read seconds, peak device memory;
+  7. fold evaluation in phase 6's experiment directory, whose two folds
+     hold full-width flagship weights (fold 0 trainer B's epoch-1
+     checkpoint, fold 1 trainer A's epoch-0 one, a hard link made before
+     B saved): 20 synthetic test knees of their own at prog_fus.yaml's
+     testing batch 16 (a full batch and a padded one of 4 valid rows)
+     through eval_prog_fus.run in bf16 three times (regime=eval with
+     profile=time, regime=explain, testing.quant=int8), then
+     export_serving.run for fold 0 (int8-all, one validation batch of
+     calibration) and one test batch served from its bundle; every launch
+     count set to 0 just before each run and read just after, and held
+     exactly to the count its forwards give (12 K1 and 3 K4 a forward,
+     159 K5 an int8-all forward); the pickles' names and keys as the JAX
+     package writes them; the ensemble equal to the double softmax of the
+     fold-wise pickle; each fold's first batch equal to make_predictor on
+     its weights (bf16 and int8-all on the evaluator's calibration); the
+     explain attributions against a recomputation; int8 against bf16
+     (phase 4's logit and probability bars; the centred errors reported:
+     phase 6's weights leave the MRI tokens' input-driven share at ~1%);
+     K1, K4 and K5 against their plain versions on the phase's own
+     inputs, full and padded batches; per-knee latency, seconds per fold,
+     restore, explain, calibration and export times, bundle bytes, peak
+     device memory.
 
 Prints progress lines, then a JSON line of kernel records (with the
 per-length times behind each sum), the card line,
@@ -125,6 +147,7 @@ import copy
 import gc
 import importlib
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -138,6 +161,7 @@ import torch
 import torch.nn.functional as F
 
 REPO = Path(__file__).resolve().parent
+T_START = time.perf_counter()
 BATCH = 4
 WARMUP_REQUESTS = 2
 REQUESTS = 5
@@ -390,6 +414,45 @@ FIT_TAGS = ("fold_0/loss_prog_batch/train", "fold_0/loss_prog_batch/val",
             "fold_0/train/loss_prog", "fold_0/val/loss_prog",
             "fold_0/val/avg_precision", "fold_0/val/roc_auc",
             "fold_0/learning_rate")
+
+# phase 7: fold evaluation over phase 6's experiment directory (fold 0:
+# trainer B's epoch-1 checkpoint; fold 1: trainer A's epoch-0 one, a hard
+# link): 20 test knees of their own, batch 16 (a full batch and a padded
+# one of 4 valid rows)
+EVAL_KNEES = 20
+EVAL_SEED = 23
+EVAL_FOLDS = 2
+EVAL_TESTING = {"batch_size": 16, "folds": {"idx": -1, "ignore": None},
+                "use_cached": False, "describe_data": False,
+                "regime": "eval", "metrics_foldw": True,
+                "ensemble_foldw": True, "metrics_ensemble": True,
+                "explain_fn": "modal_abl", "debug": False, "profile": "time",
+                "quant": "none"}
+EVAL_SERVING = {"quant": "int8-all", "calib_batches": 1, "out": None}
+# phase 7's runs: (name, testing overrides)
+EVAL_RUNS = (("eval", {}), ("explain", {"regime": "explain"}),
+             ("int8", {"quant": "int8"}))
+# the keys of the pickles as the JAX package writes them (its
+# train/evaluator.py); the fold-wise eval pickle under profile=time
+EVAL_KEYS = ("exam_knee_id", "target", "predict", "predict_proba",
+             "time_per_sample", "time_per_sample_p50", "time_per_sample_p95")
+EVAL_ENS_KEYS = ("exam_knee_id", "target", "predict__0", "predict_proba__0",
+                 "predict__1", "predict_proba__1", "predict_proba",
+                 "predict")
+EXPLAIN_KEYS = ("exam_knee_id", "target", "modal_names", "modal_abl_attrs",
+                "modal_abl_percent")
+EXPLAIN_ENS_KEYS = ("exam_knee_id", "target", "modal_names",
+                    "modal_abl_attrs__0", "modal_abl_percent__0",
+                    "modal_abl_attrs__1", "modal_abl_percent__1",
+                    "modal_abl_percent")
+METRIC_KEYS = ("sample_size", "num_pos", "num_neg", "prevalence", "roc_auc",
+               "avg_precision", "avg_ppv_calib", "avg_npv", "cutoff",
+               "youdens_index", "b_accuracy")
+# each fold's first-batch probabilities against make_predictor on its
+# weights (the same kernels on the same inputs), and the fold ensemble
+# against the double softmax recomputed from the fold-wise pickle
+EVAL_PROB_ATOL = 1e-5
+ENSEMBLE_ATOL = 1e-12
 
 
 def log(msg: str) -> None:
@@ -802,11 +865,13 @@ def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
     return torch.exp2(torch.floor(torch.log2(mag)) - 7)
 
 
-def check_stem(name: str, y, params, eps: float = 1e-5) -> float:
+def check_stem(name: str, y, params, eps: float = 1e-5, got=None) -> float:
     """K4 against its plain version (and, in bf16, the unfused stem) on the
-    same card and inputs; returns max|Δ| and exits outside a bar."""
+    same card and inputs; returns max|Δ| and exits outside a bar. ``got``:
+    K4's output on these inputs from an earlier launch (else K4 is
+    launched here)."""
     fs = stem_module()
-    out = fs.fused_bn_relu_pool(y, *params, eps)
+    out = fs.fused_bn_relu_pool(y, *params, eps) if got is None else got
     want = fs.bn_relu_pool_plain(y, *params, eps)
     torch.cuda.synchronize()
     diff = (out.float() - want.float()).abs()
@@ -1021,12 +1086,16 @@ def int8_conv_inputs(xshape, cout, k, stride, pad, groups, variant, gen):
     return (x, w, s_x * w_scale), kw
 
 
-def check_int8_conv(label, args, stride, pad, groups, kw) -> float:
+def check_int8_conv(label, args, stride, pad, groups, kw, got=None,
+                    quiet: bool = False) -> float:
     """K5 against its plain version: equal bit for bit, or exit; returns
-    the largest difference (0)."""
+    the largest difference (0). ``got``: K5's output on these inputs from
+    an earlier launch (else K5 is launched here); ``quiet`` logs a failure
+    only."""
     ic = int8_module()
     x, w, sc = args
-    got = ic.int8_conv2d(x, w, sc, stride, pad, groups, **kw)
+    if got is None:
+        got = ic.int8_conv2d(x, w, sc, stride, pad, groups, **kw)
     want = ic.int8_conv2d_fused_plain(x, w, sc, stride, pad, groups, **kw)
     torch.cuda.synchronize()
     if got.shape != want.shape or got.dtype != want.dtype:
@@ -1037,11 +1106,13 @@ def check_int8_conv(label, args, stride, pad, groups, kw) -> float:
             if got.dtype == torch.float32 else got != want)
     n_diff = int(bits.sum().item())
     err = (got.float() - want.float()).abs().max().item()
-    log(f"[int8_conv] {label:30s} x{tuple(x.shape)} w{tuple(w.shape)} "
-        f"s{stride} g{groups} -> {got.dtype} {tuple(got.shape)}: {n_diff} "
-        f"values differ from the plain version in any bit (max|d| {err:.3e}, "
-        f"max|y| {want.float().abs().max().item():.4g}) "
-        f"{'ok' if n_diff == 0 else 'FAIL'}")
+    if not quiet or n_diff:
+        log(f"[int8_conv] {label:30s} x{tuple(x.shape)} w{tuple(w.shape)} "
+            f"s{stride} g{groups} -> {got.dtype} {tuple(got.shape)}: "
+            f"{n_diff} values differ from the plain version in any bit "
+            f"(max|d| {err:.3e}, max|y| "
+            f"{want.float().abs().max().item():.4g}) "
+            f"{'ok' if n_diff == 0 else 'FAIL'}")
     if n_diff != 0:
         raise SystemExit(f"K5 disagrees with its plain version at {label}")
     return err
@@ -1264,6 +1335,16 @@ def capture(predictor, xs) -> dict:
     return seen
 
 
+def token_segments(model) -> dict:
+    """Modality → (first, last + 1) of its tokens in the final FeaT's
+    input."""
+    counts = model._token_counts(model._shapes(3), n_mr=2)
+    counts.append(int(MODEL_CFG["agg"]["num_slices"][3]))
+    bounds = np.cumsum([0] + counts)
+    return {name: (int(bounds[i]), int(bounds[i + 1])) for i, name in
+            enumerate(("xr", "dess", "t2", "clin"))}
+
+
 def centred_error(got: torch.Tensor, want: torch.Tensor) -> tuple:
     """(B, ...) bf16 and float32 readings → (max|Δ| / max|want|, the
     input-driven share max|dev| / max|want|, max|Δ − mean Δ| / max|dev|).
@@ -1423,14 +1504,9 @@ def phase_slice(card: str, sd: dict):
         f"device memory {peak_gb:.2f} GB  [{card}]")
     busy = device_breakdown(lambda: predictor(xs).cpu(), float(lat.mean()))
 
-    model = predictor.model
-    counts = model._token_counts(model._shapes(3), n_mr=2)
-    counts.append(int(MODEL_CFG["agg"]["num_slices"][3]))
-    bounds = np.cumsum([0] + counts)
-    segments = {name: (int(bounds[i]), int(bounds[i + 1])) for i, name in
-                enumerate(("xr", "dess", "t2", "clin"))}
+    segments = token_segments(predictor.model)
     got = capture(predictor, xs)
-    del predictor, model
+    del predictor
     torch.cuda.empty_cache()
     predictor32 = make_predictor(MODEL_CFG, sd, MODALS,
                                  MODEL_CFG["downscale"], dtype=torch.float32)
@@ -1476,10 +1552,14 @@ def check_fe_stem(fe) -> None:
                          "unfused FE")
 
 
-def compare_int8(got: dict, want: dict, segments: dict, label: str) -> None:
+def compare_int8(got: dict, want: dict, segments: dict, label: str,
+                 hold_centred: bool = True) -> None:
     """int8 serving against the bf16 request: each token segment of the
     final FeaT's input and output at CENTRED_RTOL of its input-driven part
-    (the bar of compare_dtypes); the logits are reported."""
+    (the bar of compare_dtypes); the logits are reported. Without
+    ``hold_centred`` (weights whose tokens hardly depend on the inputs)
+    the centred errors are reported, and the logits and probabilities are
+    held to phase 4's bars instead (LOGIT_RTOL, PROB_ATOL)."""
     failed = []
     for key in ("tokens", "states"):
         offset = 1 if key == "states" else 0   # the CLS token comes first
@@ -1488,18 +1568,27 @@ def compare_int8(got: dict, want: dict, segments: dict, label: str) -> None:
                 got[key][:, lo + offset:hi + offset],
                 want[key][:, lo + offset:hi + offset])
             ok = centred <= CENTRED_RTOL
+            verdict = ("ok" if ok else "FAIL") if hold_centred else \
+                "not held"
             log(f"[int8] {label} {key:6s} {name:5s} ({hi - lo:2d} tokens): "
                 f"max|d|/max|bf16| {rel:.4e}, input-driven share "
                 f"{share:.4e}, centred error {centred:.4e} (tol "
-                f"{CENTRED_RTOL}) {'ok' if ok else 'FAIL'}")
-            if not ok:
+                f"{CENTRED_RTOL}) {verdict}")
+            if not ok and hold_centred:
                 failed.append(f"{key}/{name}")
     d_logit = (got["logits"] - want["logits"]).abs().max().item()
     d_prob = (torch.softmax(got["logits"], -1)
               - torch.softmax(want["logits"], -1)).abs().max().item()
+    scale = max(1.0, want["logits"].abs().max().item())
+    if hold_centred:
+        held = "not held to a limit"
+    else:
+        held = f"tol {LOGIT_RTOL}·{scale:.3f} and {PROB_ATOL}"
+        if d_logit > LOGIT_RTOL * scale or d_prob > PROB_ATOL:
+            failed.append("logits")
     log(f"[int8] {label} logits against bf16: max|d| {d_logit:.4e}, "
-        f"max|dprob| {d_prob:.4e} (not held to a limit); int8 logits "
-        f"{got['logits'].cpu().numpy().tolist()}")
+        f"max|dprob| {d_prob:.4e} ({held}); int8 logits "
+        f"{got['logits'].cpu().numpy().tolist()[:4]}...")
     if failed:
         raise SystemExit(f"{label} serving disagrees with the bf16 run: "
                          f"{failed}")
@@ -1902,40 +1991,97 @@ def fit_state(trainer) -> dict:
 
 
 @contextlib.contextmanager
-def kernel_inputs():
-    """Keep a copy of the inputs of the first K1 and K4 launch at each
-    shape and type the path gives them. The FeaT's and the stems' calls
-    of the wrappers are wrapped in turn (the wrappers and their counts
-    stay as they are); yields {(kernel, shape, types): inputs}."""
+def kernel_inputs(tag=None):
+    """Keep a copy of the inputs of the first K1, K4 and K5 launch at each
+    shape and type the path gives them: the FeaT's and the FEs' calls of
+    the wrappers are wrapped in turn (the wrappers and their counts stay as
+    they are). K5 keeps images 0 and N - 1 of its input (and residual) with
+    the rows the launch wrote there: a conv maps each image on its own.
+    ``tag``, a one-element list, adds its current value to each key (phase
+    7 marks full and padded batches); with it K4 too keeps images 0 and
+    N - 1 and its output's, so that a timed batch copies a few MB, not
+    the stems' GB. Yields {(kernel, shape, types, ...): inputs}."""
     from oaprogressionmmf_torch.models import feat, resnet
-    fa, fs = flash_module(), stem_module()
-    real_flash, real_stem = feat.flash_attention, resnet.stem_epilogue
+    fa, fs, ic = flash_module(), stem_module(), int8_module()
+    real = (feat.flash_attention, resnet.stem_epilogue,
+            resnet.fused_bn_relu_pool, resnet.int8_conv2d)
+    real_flash, real_stem, real_pool, real_conv = real
     seen = {}
+
+    def key_of(*key):
+        return key if tag is None else key + (tag[0],)
+
+    def ends(t):
+        # images 0 and N - 1 by slices: an index list would copy it to the
+        # card and hold the host until the card catches up
+        return torch.cat((t[:1], t[-1:]))
 
     def flash(q, k, v, scale=None):
         before = fa.flash_attention.launches
         out = real_flash(q, k, v, scale)
-        key = ("K1", tuple(q.shape), q.dtype)
+        key = key_of("K1", tuple(q.shape), q.dtype)
         if fa.flash_attention.launches > before and key not in seen:
             seen[key] = tuple(t.detach().clone() for t in (q, k, v)) \
                 + (scale,)
         return out
 
+    def keep_stem(before, y, params, eps, out):
+        key = key_of("K4", tuple(y.shape), y.dtype, params[0].dtype)
+        if fs.fused_bn_relu_pool.launches > before and key not in seen:
+            params = tuple(t.detach().clone() for t in params)
+            if tag is None:
+                seen[key] = (y.detach().clone(), params, eps, None)
+            else:
+                cl = torch.channels_last
+                seen[key] = (ends(y).contiguous(memory_format=cl), params,
+                             eps, ends(out).contiguous(memory_format=cl))
+
     def stem(y, bn, relu, pool):
         before = fs.fused_bn_relu_pool.launches
         out = real_stem(y, bn, relu, pool)
-        key = ("K4", tuple(y.shape), y.dtype, bn.weight.dtype)
-        if fs.fused_bn_relu_pool.launches > before and key not in seen:
-            params = (bn.weight, bn.bias, bn.running_mean, bn.running_var)
-            seen[key] = (y.detach().clone(),
-                         tuple(t.detach().clone() for t in params), bn.eps)
+        keep_stem(before, y, (bn.weight, bn.bias, bn.running_mean,
+                              bn.running_var), bn.eps, out)
         return out
 
-    feat.flash_attention, resnet.stem_epilogue = flash, stem
+    def pool(y, weight, bias, running_mean, running_var, eps=1e-5):
+        # the int8 FEs' stem: K5 to float32, then K4
+        before = fs.fused_bn_relu_pool.launches
+        out = real_pool(y, weight, bias, running_mean, running_var, eps)
+        keep_stem(before, y, (weight, bias, running_mean, running_var), eps,
+                  out)
+        return out
+
+    def conv(x, w, sc, stride=1, padding=0, groups=1, **kw):
+        before = ic.int8_conv2d.launches
+        out = real_conv(x, w, sc, stride, padding, groups, **kw)
+        res = kw.get("res")
+        key = key_of("K5", tuple(x.shape), tuple(w.shape), stride, padding,
+                     groups, kw.get("bn") is not None,
+                     None if res is None else res.dtype,
+                     bool(kw.get("relu")), kw.get("out_scale") is not None)
+        if ic.int8_conv2d.launches > before and key not in seen:
+            kept = {}
+            for name, value in kw.items():
+                if name == "w_packed" or value is None:
+                    continue
+                if name == "bn":
+                    value = tuple(t.clone() for t in value)
+                elif name == "res":
+                    value = ends(value)
+                elif isinstance(value, torch.Tensor):
+                    value = value.clone()
+                kept[name] = value
+            seen[key] = ((ends(x), w.clone(), sc.clone()), stride, padding,
+                         groups, kept, ends(out))
+        return out
+
+    (feat.flash_attention, resnet.stem_epilogue, resnet.fused_bn_relu_pool,
+     resnet.int8_conv2d) = flash, stem, pool, conv
     try:
         yield seen
     finally:
-        feat.flash_attention, resnet.stem_epilogue = real_flash, real_stem
+        (feat.flash_attention, resnet.stem_epilogue,
+         resnet.fused_bn_relu_pool, resnet.int8_conv2d) = real
 
 
 def check_fit_inputs(seen: dict) -> dict:
@@ -1959,16 +2105,18 @@ def check_fit_inputs(seen: dict) -> dict:
             if key[0] == "K1":
                 errs["K1"] = max(errs["K1"], check_flash(*args))
             else:
-                y, params, eps = args
+                y, params, eps, _ = args
                 errs["K4"] = max(errs["K4"], check_stem("fit", y, params,
                                                         eps))
     return errs
 
 
-def phase_fit(card: str, train_ms: float) -> tuple:
+def phase_fit(card: str, train_ms: float, root: str) -> tuple:
     """Train, checkpoint and resume the full-width flagship through
-    ProgressionTrainer.fit (phase 6); returns the launch counts of the
-    resumed epoch and K1's and K4's max|Δ| on that epoch's inputs."""
+    ProgressionTrainer.fit (phase 6) in the experiment directory ``root``;
+    trainer A's checkpoint is also fold 1's (a hard link), trainer B's
+    stays fold 0's. Returns the launch counts of the resumed epoch and K1's
+    and K4's max|Δ| on that epoch's inputs."""
     from oaprogressionmmf_torch.train.trainer import ProgressionTrainer
     datasets = {"train": SynthKnees(FIT_SEED, FIT_TRAIN_KNEES, MODEL_CFG),
                 "val": SynthKnees(FIT_SEED + 1, FIT_VAL_KNEES, MODEL_CFG)}
@@ -1976,109 +2124,518 @@ def phase_fit(card: str, train_ms: float) -> tuple:
     for name in ("train", "val"):
         if set(datasets[name].targets()) != {0, 1}:
             raise SystemExit(f"the {name} knees lack a class")
-    with tempfile.TemporaryDirectory(prefix="fit_") as tmp:
-        cfg = copy.deepcopy(FIT_CONFIG)
-        cfg["model"] = copy.deepcopy(MODEL_CFG)
-        cfg["path_experiment_root"] = tmp
-        log(f"[fit] checkpoints in {tmp}: "
-            f"{shutil.disk_usage(tmp).free / 1e9:.1f} GB free")
-        t0 = time.perf_counter()
-        first = ProgressionTrainer(cfg, 0, datasets=datasets)
-        summary = first.fit()
+    cfg = copy.deepcopy(FIT_CONFIG)
+    cfg["model"] = copy.deepcopy(MODEL_CFG)
+    cfg["path_experiment_root"] = root
+    log(f"[fit] checkpoints in {root}: "
+        f"{shutil.disk_usage(root).free / 1e9:.1f} GB free")
+    t0 = time.perf_counter()
+    first = ProgressionTrainer(cfg, 0, datasets=datasets)
+    summary = first.fit()
+    torch.cuda.synchronize()
+    log(f"[fit] trainer A: epoch 0 in {time.perf_counter() - t0:.1f} s "
+        f"(construction included): {first.timing['train_steps']} steps, "
+        f"{first.timing['val_batches']} validation batch; best "
+        f"{summary['criterion']} {summary['best']} at epoch "
+        f"{summary['epoch']}")
+    ckpts = sorted(first.path_weights_fold.iterdir())
+    want = [f"{MODEL_CFG['name']}__fold_0__epoch_000.ckpt"]
+    if [p.name for p in ckpts] != want or summary["epoch"] != 0:
+        raise SystemExit(f"checkpoints {ckpts}, want {want}")
+    records = [json.loads(line) for line in
+               (first.path_logs_fold / "scalars.jsonl").read_text()
+               .splitlines()]
+    missing = sorted(set(FIT_TAGS) - {r["tag"] for r in records})
+    if missing or not all(np.isfinite(r["value"]) for r in records):
+        raise SystemExit(f"scalars.jsonl lacks {missing} or holds a "
+                         f"non-finite value")
+
+    # fold 1 of phase 7: A's weights, before B's save removes the file
+    fold_1 = Path(root) / "weights" / "prog" / "fold_1"
+    fold_1.mkdir(parents=True)
+    os.link(ckpts[0],
+            fold_1 / f"{MODEL_CFG['name']}__fold_1__epoch_000.ckpt")
+
+    cfg["training"]["epochs"]["num"] = 2
+    t0 = time.perf_counter()
+    resumed = ProgressionTrainer(cfg, 0, datasets=datasets)
+    torch.cuda.synchronize()
+    t_resume = time.perf_counter() - t0
+    want_state, got_state = fit_state(first), fit_state(resumed)
+    differ = [n for n, t in want_state.items()
+              if not torch.equal(t, got_state[n])]
+    n_moments = sum(1 for n in want_state if ":" in n)
+    log(f"[fit] trainer B: resumed at epoch {resumed.start_epoch}, step "
+        f"{resumed.runtime.step}, in {t_resume:.1f} s; "
+        f"{len(want_state)} tensors ({n_moments} Adam moments) against "
+        f"A's: {len(differ)} differ (torch.equal on the card)")
+    if (resumed.start_epoch != 1 or resumed.runtime.step != 2 or differ
+            or set(want_state) != set(got_state)):
+        raise SystemExit(f"resume: epoch {resumed.start_epoch}, step "
+                         f"{resumed.runtime.step}, differ {differ[:8]}")
+    ckpt_bytes = first.timing["ckpt_bytes"]
+    write_s, read_s = first.timing["ckpt_write"], \
+        resumed.timing["ckpt_read"]
+    # A's freed blocks stay in the allocator's cache for B's steps
+    del first, want_state, got_state
+    gc.collect()
+
+    step_ms = []
+    bare_step = resumed.runtime.train_step
+
+    def timed_step(*args, **kwargs):
+        t = time.perf_counter()
+        out = bare_step(*args, **kwargs)
         torch.cuda.synchronize()
-        log(f"[fit] trainer A: epoch 0 in {time.perf_counter() - t0:.1f} s "
-            f"(construction included): {first.timing['train_steps']} steps, "
-            f"{first.timing['val_batches']} validation batch; best "
-            f"{summary['criterion']} {summary['best']} at epoch "
-            f"{summary['epoch']}")
-        ckpts = sorted(first.path_weights_fold.iterdir())
-        want = [f"{MODEL_CFG['name']}__fold_0__epoch_000.ckpt"]
-        if [p.name for p in ckpts] != want or summary["epoch"] != 0:
-            raise SystemExit(f"checkpoints {ckpts}, want {want}")
-        records = [json.loads(line) for line in
-                   (first.path_logs_fold / "scalars.jsonl").read_text()
-                   .splitlines()]
-        missing = sorted(set(FIT_TAGS) - {r["tag"] for r in records})
-        if missing or not all(np.isfinite(r["value"]) for r in records):
-            raise SystemExit(f"scalars.jsonl lacks {missing} or holds a "
-                             f"non-finite value")
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        return out
 
-        cfg["training"]["epochs"]["num"] = 2
-        t0 = time.perf_counter()
-        resumed = ProgressionTrainer(cfg, 0, datasets=datasets)
-        torch.cuda.synchronize()
-        t_resume = time.perf_counter() - t0
-        want_state, got_state = fit_state(first), fit_state(resumed)
-        differ = [n for n, t in want_state.items()
-                  if not torch.equal(t, got_state[n])]
-        n_moments = sum(1 for n in want_state if ":" in n)
-        log(f"[fit] trainer B: resumed at epoch {resumed.start_epoch}, step "
-            f"{resumed.runtime.step}, in {t_resume:.1f} s; "
-            f"{len(want_state)} tensors ({n_moments} Adam moments) against "
-            f"A's: {len(differ)} differ (torch.equal on the card)")
-        if (resumed.start_epoch != 1 or resumed.runtime.step != 2 or differ
-                or set(want_state) != set(got_state)):
-            raise SystemExit(f"resume: epoch {resumed.start_epoch}, step "
-                             f"{resumed.runtime.step}, differ {differ[:8]}")
-        ckpt_bytes = first.timing["ckpt_bytes"]
-        write_s, read_s = first.timing["ckpt_write"], \
-            resumed.timing["ckpt_read"]
-        # A's freed blocks stay in the allocator's cache for B's steps
-        del first, want_state, got_state
-        gc.collect()
-
-        step_ms = []
-        bare_step = resumed.runtime.train_step
-
-        def timed_step(*args, **kwargs):
-            t = time.perf_counter()
-            out = bare_step(*args, **kwargs)
-            torch.cuda.synchronize()
-            step_ms.append((time.perf_counter() - t) * 1e3)
-            return out
-
-        resumed.runtime.train_step = timed_step
-        torch.cuda.reset_peak_memory_stats()
-        reset_launch_counts()
-        with kernel_inputs() as seen:
-            summary = resumed.fit()
-        torch.cuda.synchronize()
-        fa = flash_module()
-        counts = {"K1": fa.flash_attention.launches,
-                  "K2": fa.flash_attention_bwd.launches_dq,
-                  "K3": fa.flash_attention_bwd.launches_dkv,
-                  "K4": stem_module().fused_bn_relu_pool.launches,
-                  "K5": int8_module().int8_conv2d.launches}
-        peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        tm = resumed.timing
-        log(f"[fit] trainer B: epoch 1 ({tm['train_steps']} steps, "
-            f"{tm['val_batches']} validation batch) launches {counts} (want "
-            f"{FIT_LAUNCHES}); best {summary['criterion']} "
-            f"{summary['best']} at epoch {summary['epoch']}")
-        if counts != FIT_LAUNCHES or summary["epoch"] != 1 \
-                or not np.isfinite(summary["best"]):
-            raise SystemExit(f"fit: launches {counts}, summary {summary}")
-        errs = check_fit_inputs(seen)
-        del seen
-        steps = tm["train_steps"]
-        loop_ms = (tm["train"] - tm["loader_wait"]) / steps * 1e3
-        log(f"[fit] ms per training step inside fit: the loop less the "
-            f"loader wait {loop_ms:.2f}, each step {step_ms} (synchronized) "
-            f"against phase 5's bare step {train_ms:.2f}; loader wait per "
-            f"step {tm['loader_wait'] / steps * 1e3:.2f} ms; validation "
-            f"{tm['val'] / tm['val_batches'] * 1e3:.2f} ms per batch of 16 "
-            f"(loader and metrics included); peak device memory "
-            f"{peak_gb:.2f} GB  [{card}]")
-        t0 = time.perf_counter()
-        resumed._ckpt_payload()
-        payload_s = time.perf_counter() - t0
-        log(f"[fit] checkpoint {ckpt_bytes} bytes: write {write_s:.2f} s "
-            f"(epoch 1's {tm['ckpt_write']:.2f} s, of which the payload's "
-            f"transposes and copies to the host {payload_s:.2f} s), read and "
-            f"restore {read_s:.2f} s  [{card}]")
-        del resumed
+    resumed.runtime.train_step = timed_step
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    with kernel_inputs() as seen:
+        summary = resumed.fit()
+    torch.cuda.synchronize()
+    fa = flash_module()
+    counts = {"K1": fa.flash_attention.launches,
+              "K2": fa.flash_attention_bwd.launches_dq,
+              "K3": fa.flash_attention_bwd.launches_dkv,
+              "K4": stem_module().fused_bn_relu_pool.launches,
+              "K5": int8_module().int8_conv2d.launches}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    tm = resumed.timing
+    log(f"[fit] trainer B: epoch 1 ({tm['train_steps']} steps, "
+        f"{tm['val_batches']} validation batch) launches {counts} (want "
+        f"{FIT_LAUNCHES}); best {summary['criterion']} "
+        f"{summary['best']} at epoch {summary['epoch']}")
+    if counts != FIT_LAUNCHES or summary["epoch"] != 1 \
+            or not np.isfinite(summary["best"]):
+        raise SystemExit(f"fit: launches {counts}, summary {summary}")
+    errs = check_fit_inputs(seen)
+    del seen
+    steps = tm["train_steps"]
+    loop_ms = (tm["train"] - tm["loader_wait"]) / steps * 1e3
+    log(f"[fit] ms per training step inside fit: the loop less the "
+        f"loader wait {loop_ms:.2f}, each step {step_ms} (synchronized) "
+        f"against phase 5's bare step {train_ms:.2f}; loader wait per "
+        f"step {tm['loader_wait'] / steps * 1e3:.2f} ms; validation "
+        f"{tm['val'] / tm['val_batches'] * 1e3:.2f} ms per batch of 16 "
+        f"(loader and metrics included); peak device memory "
+        f"{peak_gb:.2f} GB  [{card}]")
+    t0 = time.perf_counter()
+    resumed._ckpt_payload()
+    payload_s = time.perf_counter() - t0
+    log(f"[fit] checkpoint {ckpt_bytes} bytes: write {write_s:.2f} s "
+        f"(epoch 1's {tm['ckpt_write']:.2f} s, of which the payload's "
+        f"transposes and copies to the host {payload_s:.2f} s), read and "
+        f"restore {read_s:.2f} s  [{card}]")
+    del resumed
     gc.collect()
     torch.cuda.empty_cache()
+    return counts, errs
+
+
+def eval_config(root: str) -> dict:
+    """Phase 6's config with prog_fus.yaml's testing and serving subtrees
+    (profile=time, one calibration batch), two folds."""
+    cfg = copy.deepcopy(FIT_CONFIG)
+    cfg["model"] = copy.deepcopy(MODEL_CFG)
+    cfg["path_experiment_root"] = root
+    cfg["path_logs"] = str(Path(root) / "logs")
+    cfg["training"]["folds"]["num"] = EVAL_FOLDS
+    cfg["testing"] = copy.deepcopy(EVAL_TESTING)
+    cfg["serving"] = dict(EVAL_SERVING)
+    cfg["runtime"] = {"compute_dtype": "bfloat16", "n_devices": None,
+                      "distributed": {"enable": False}}
+    return cfg
+
+
+def eval_launches(run: str) -> dict:
+    """Launches of one phase 7 run, from its forwards: 12 K1 and 3 K4 a
+    forward, 159 K5 an int8-all forward. profile=time runs each fold's
+    first batch once more; explain runs 1 + 4 forwards a batch; the
+    calibration graph (its FEs record float activations and pool unfused)
+    runs K1 alone; the export calibrates on 1 validation batch and its
+    bundle serves one test batch."""
+    batches = -(-EVAL_KNEES // EVAL_TESTING["batch_size"])
+    per_fold = batches + (EVAL_TESTING["profile"] == "time")
+    if run == "eval":
+        bf16, calib, int8 = EVAL_FOLDS * per_fold, 0, 0
+    elif run == "explain":
+        bf16, calib, int8 = EVAL_FOLDS * batches * (1 + len(MODALS)), 0, 0
+    elif run == "int8":
+        bf16, calib, int8 = 0, EVAL_FOLDS, EVAL_FOLDS * per_fold
+    else:
+        bf16, calib, int8 = 0, EVAL_SERVING["calib_batches"], 1
+    k1, k4 = sum(MAIN_PATH_N.values()), len(FLAGSHIP_STEMS)
+    return {"K1": k1 * (bf16 + calib + int8), "K4": k4 * (bf16 + int8),
+            "K5": K5_PER_REQUEST * int8}
+
+
+def kernel_counts() -> dict:
+    return {"K1": flash_module().flash_attention.launches,
+            "K4": stem_module().fused_bn_relu_pool.launches,
+            "K5": int8_module().int8_conv2d.launches}
+
+
+@contextlib.contextmanager
+def tagged_batches(tag: list):
+    """Set ``tag[0]`` to "full" or "padded" as each batch of a loader is
+    handed over (for kernel_inputs)."""
+    from oaprogressionmmf_torch.data.pipeline import BatchLoader
+    real = BatchLoader.epoch
+
+    def epoch(self, epoch_idx: int = 0):
+        batches = real(self, epoch_idx)
+        try:
+            for batch in batches:
+                tag[0] = ("padded" if batch["_n_valid"] < self.batch_size
+                          else "full")
+                yield batch
+        finally:
+            batches.close()
+
+    BatchLoader.epoch = epoch
+    try:
+        yield
+    finally:
+        BatchLoader.epoch = real
+
+
+@contextlib.contextmanager
+def timed(owner, names, record: dict, keep=()):
+    """Wrap ``owner``'s attributes ``names`` (methods or functions): each
+    call's seconds, the card synchronized, go to ``record[name]``; the
+    results of those in ``keep`` to ``record[name + ":out"]``."""
+    real = {n: getattr(owner, n) for n in names}
+
+    def wrap(name, fn):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            record.setdefault(name, []).append(time.perf_counter() - t0)
+            if name in keep:
+                record.setdefault(name + ":out", []).append(out)
+            return out
+        return call
+
+    for n, fn in real.items():
+        setattr(owner, n, wrap(n, fn))
+    try:
+        yield
+    finally:
+        for n, fn in real.items():
+            setattr(owner, n, fn)
+
+
+def check_eval_inputs(seen: dict) -> dict:
+    """K1, K4 and K5 against their plain versions on the inputs phase 7
+    gave them (kernel_inputs), full and padded batches of 16: K1 at (16,
+    8, N, 256) bf16; K4 at the three stems in bf16 (eval) and float32 (the
+    int8 FEs) and K5 at every conv of the int8 FEs, both on images 0 and
+    N - 1 of the launch, the outputs the path got against the plain
+    versions (K4 within one bf16 ulp or 1e-6·max|out|, K5 bit for bit).
+    Exits outside a bar or where a shape is missing."""
+    tags = ("full", "padded")
+    heads = MODEL_CFG["agg"]["heads"]
+    want = {(EVAL_TESTING["batch_size"], heads, n, FLASH_D, t)
+            for n in MAIN_PATH_N for t in tags}
+    got = {key[1] + (key[-1],) for key in seen if key[0] == "K1"}
+    stems = {(key[2], key[-1]) for key in seen if key[0] == "K4"}
+    k5 = [key for key in seen if key[0] == "K5"]
+    k5_shapes = {key[1:-1] for key in k5}
+    if got != want or len(stems) != 4 or len(
+            [key for key in seen if key[0] == "K4"]) != 12 \
+            or {key[-1] for key in k5} != set(tags) \
+            or len(k5) != 2 * len(k5_shapes):
+        raise SystemExit(f"phase 7 gave K1 {sorted(got)} (want "
+                         f"{sorted(want)}), K4 {sorted(stems)} and K5 at "
+                         f"{len(k5)} keys over {len(k5_shapes)} shapes")
+    errs = {"K1": 0.0, "K4": 0.0, "K5": 0.0}
+    with torch.inference_mode():
+        for key, args in sorted(seen.items(),
+                                key=lambda item: str(item[0])):
+            if key[0] == "K1":
+                errs["K1"] = max(errs["K1"], check_flash(*args[:4]))
+            elif key[0] == "K4":
+                y, params, eps, out = args
+                errs["K4"] = max(errs["K4"], check_stem(
+                    f"eval {key[-1]}", y, params, eps, got=out))
+            else:
+                xs, stride, pad, groups, kw, out = args
+                errs["K5"] = max(errs["K5"], check_int8_conv(
+                    f"eval {key[-1]}", xs, stride, pad, groups, kw, got=out,
+                    quiet=True))
+    log(f"[eval] K5 bit for bit its plain version at {len(k5)} launches "
+        f"({len(k5_shapes)} conv shapes, full and padded batches; images 0 "
+        f"and N - 1 of each)")
+    return errs
+
+
+def softmax_np(x: np.ndarray) -> np.ndarray:
+    e = np.exp(x - np.amax(x, axis=-1, keepdims=True))
+    return e / np.sum(e, axis=-1, keepdims=True)
+
+
+def check_keys(what: str, tree: dict, keys) -> None:
+    if tuple(tree) != tuple(keys):
+        raise SystemExit(f"{what}: keys {list(tree)}, want {list(keys)}")
+
+
+def explain_recomputed(predictor, xs, ys) -> tuple:
+    """Batch attributions by hand: the target's logit less its logit with
+    each modality's preprocessed input zeroed; and max|logit|."""
+    with torch.inference_mode():
+        inputs = predictor.preprocess(predictor.to_device(xs))
+        idx = torch.as_tensor(ys).long().to(predictor.device)[:, None]
+        out = []
+        for m in range(-1, len(inputs)):
+            abl = tuple(torch.zeros_like(x) if i == m else x
+                        for i, x in enumerate(inputs))
+            logits = predictor.model(*abl)
+            logits = (logits["main"] if isinstance(logits, dict)
+                      else logits).float()
+            out.append(logits)
+        base = out[0].gather(1, idx)[:, 0]
+        attrs = torch.stack([base - o.gather(1, idx)[:, 0]
+                             for o in out[1:]], dim=1)
+        return attrs.cpu().numpy(), out[0].abs().max().item()
+
+
+def phase_eval(card: str, root: str) -> tuple:
+    """Fold evaluation of phase 6's two folds at full width (phase 7):
+    eval_prog_fus.run in bf16 with profile=time, with regime=explain and
+    with testing.quant=int8, then export_serving.run for fold 0 and one
+    test batch served from its bundle; returns each run's launch counts
+    and K1's, K4's and K5's max|Δ| on the phase's inputs."""
+    import pickle
+
+    from oaprogressionmmf_torch import serving
+    from oaprogressionmmf_torch.run import eval_prog_fus, export_serving
+    from oaprogressionmmf_torch.train import evaluator as ev_module
+    from oaprogressionmmf_torch.train.trainer import _modality_xs
+
+    t_phase = time.perf_counter()
+    datasets = {"train": SynthKnees(FIT_SEED, FIT_TRAIN_KNEES, MODEL_CFG),
+                "val": SynthKnees(FIT_SEED + 1, FIT_VAL_KNEES, MODEL_CFG),
+                "test": SynthKnees(EVAL_SEED, EVAL_KNEES, MODEL_CFG)}
+    if set(datasets["test"].targets()) != {0, 1}:
+        raise SystemExit("the test knees lack a class")
+    cfg = eval_config(root)
+    logs = Path(root) / "logs_eval" / "incid"
+    Evaluator = ev_module.ProgressionEvaluator
+    methods = ("_restore_fold", "eval_epoch", "explain_epoch",
+               "_quant_predictor")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tag = ["none"]
+    counts, records, pickles, seconds = {}, {}, {}, {}
+    with kernel_inputs(tag) as seen, tagged_batches(tag):
+        for run, overrides in EVAL_RUNS:
+            c = copy.deepcopy(cfg)
+            c["testing"].update(overrides)
+            records[run] = rec = {}
+            # the eval run's restored weights and the int8 run's
+            # calibrations are kept for the checks
+            keep = {"eval": ("_restore_fold",),
+                    "int8": ("calibrate_quant_acts",)}.get(run, ())
+            with timed(Evaluator, methods, rec, keep), \
+                    timed(ev_module, ("calibrate_quant_acts",), rec, keep):
+                reset_launch_counts()
+                t0 = time.perf_counter()
+                eval_prog_fus.run(c, datasets=datasets)
+                torch.cuda.synchronize()
+                seconds[run] = time.perf_counter() - t0
+                counts[run] = kernel_counts()
+            stem = "explain_fus" if run == "explain" else "eval_fus"
+            pickles[run] = {
+                p.stem: pickle.loads(p.read_bytes())
+                for p in sorted(logs.glob(f"{stem}_*.pkl"))}
+            gc.collect()
+            torch.cuda.empty_cache()
+        c = copy.deepcopy(cfg)
+        c["testing"]["folds"]["idx"] = 0
+        records["export"] = rec = {}
+        with timed(serving, ("calibrate_quant_acts",), rec):
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            paths = export_serving.run(c, datasets=datasets)
+            torch.cuda.synchronize()
+            seconds["export"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            bundle = serving.load_serving_bundle(paths[0])
+            seconds["load"] = time.perf_counter() - t0
+            loader = datasets["test"]
+            batch = [loader.get(i) for i in range(EVAL_TESTING["batch_size"])]
+            xs1 = _modality_xs({k: np.stack([b[k] for b in batch])
+                                for k in batch[0] if k.startswith("image__")},
+                               MODALS)
+            served = bundle(xs1).cpu()
+            counts["export"] = kernel_counts()
+    bundle_bytes = sum(f.stat().st_size for f in paths[0].iterdir())
+    del bundle
+    gc.collect()
+    torch.cuda.empty_cache()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    # launches, exact
+    for run in counts:
+        want = eval_launches(run)
+        log(f"[eval] {run}: launches {counts[run]} (want {want})")
+        if counts[run] != want:
+            raise SystemExit(f"phase 7 {run}: launches {counts[run]}, want "
+                             f"{want}")
+
+    # the pickles: JAX's names and keys
+    ev, ex, q8 = pickles["eval"], pickles["explain"], pickles["int8"]
+    names = {"eval": ["eval_fus_metrics_ens", "eval_fus_metrics_foldw",
+                      "eval_fus_raw_ens", "eval_fus_raw_foldw"],
+             "explain": ["explain_fus_raw_ens", "explain_fus_raw_foldw"]}
+    for run in EVAL_RUNS:
+        want = names["explain" if run[0] == "explain" else "eval"]
+        if sorted(pickles[run[0]]) != want:
+            raise SystemExit(f"{run[0]} pickles {sorted(pickles[run[0]])}, "
+                             f"want {want}")
+    folds = list(range(EVAL_FOLDS))
+    for k in folds:
+        check_keys(f"eval fold {k}", ev["eval_fus_raw_foldw"][k], EVAL_KEYS)
+        check_keys(f"int8 fold {k}", q8["eval_fus_raw_foldw"][k], EVAL_KEYS)
+        check_keys(f"explain fold {k}", ex["explain_fus_raw_foldw"][k],
+                   EXPLAIN_KEYS)
+        for run in (ev, q8):
+            check_keys(f"metrics fold {k}", run["eval_fus_metrics_foldw"][k],
+                       METRIC_KEYS)
+    for run in (ev, q8):
+        check_keys("ensemble", run["eval_fus_raw_ens"], EVAL_ENS_KEYS)
+        check_keys("ensemble metrics", run["eval_fus_metrics_ens"],
+                   METRIC_KEYS)
+    check_keys("explain ensemble", ex["explain_fus_raw_ens"],
+               EXPLAIN_ENS_KEYS)
+    raw = ev["eval_fus_raw_foldw"]
+    ids = [f"synth{EVAL_SEED}__{i:03d}" for i in range(EVAL_KNEES)]
+    for run in (ev, q8):
+        for k in folds:
+            r = run["eval_fus_raw_foldw"][k]
+            p = np.asarray(r["predict_proba"])
+            if r["exam_knee_id"] != ids or p.shape != (EVAL_KNEES, 2) \
+                    or not np.isfinite(p).all() \
+                    or r["target"] != datasets["test"].targets().tolist():
+                raise SystemExit(f"fold {k}: knees, targets or "
+                                 f"probabilities wrong: {p.shape}")
+
+    # the ensemble: the double softmax of the fold-wise probabilities
+    ens_errs = []
+    for run in (ev, q8):
+        probs = np.stack([np.asarray(run["eval_fus_raw_foldw"][k]
+                                     ["predict_proba"]) for k in folds], 1)
+        want = softmax_np(np.mean(probs, axis=1))
+        got = np.asarray(run["eval_fus_raw_ens"]["predict_proba"])
+        ens_errs.append(float(np.abs(got - want).max()))
+        if ens_errs[-1] > ENSEMBLE_ATOL or run["eval_fus_raw_ens"][
+                "predict"] != np.argmax(want, axis=1).tolist():
+            raise SystemExit(f"the ensemble is not the double softmax: "
+                             f"{ens_errs[-1]:.3e}")
+    log(f"[eval] ensembles (bf16, int8) against the double softmax of the "
+        f"fold-wise pickle: max|d| {ens_errs} (tol {ENSEMBLE_ATOL}); "
+        f"ensemble roc_auc {ev['eval_fus_metrics_ens']['roc_auc']}, int8 "
+        f"{q8['eval_fus_metrics_ens']['roc_auc']}")
+
+    # each fold's first batch against make_predictor on its weights (bf16,
+    # and int8-all on the evaluator's calibration); the explain
+    # attributions against a recomputation on that predictor; int8 against
+    # bf16 at phase 4c's centred bar
+    ys1 = datasets["test"].targets()[:EVAL_TESTING["batch_size"]]
+    int8_cfg = serving.quantized_model_config(MODEL_CFG, "int8-all")
+    for k, sd, quant_acts in zip(
+            folds, records["eval"]["_restore_fold:out"],
+            records["int8"]["calibrate_quant_acts:out"]):
+        predictor = serving.make_predictor(MODEL_CFG, sd, MODALS,
+                                           MODEL_CFG["downscale"])
+        want = predictor(xs1).cpu().numpy()
+        got = np.asarray(raw[k]["predict_proba"][:len(want)])
+        err = float(np.abs(got - want).max())
+        attrs, peak = explain_recomputed(predictor, xs1, ys1)
+        got_attrs = np.asarray(ex["explain_fus_raw_foldw"][k]
+                               ["modal_abl_attrs"][:len(attrs)])
+        err_attrs = float(np.abs(got_attrs - attrs).max())
+        bar = LOGIT_RTOL * max(1.0, peak)
+        seen_bf16 = capture(predictor, xs1)
+        segments = token_segments(predictor.model)
+        del predictor
+        predictor = serving.make_predictor(
+            int8_cfg, sd, MODALS, MODEL_CFG["downscale"],
+            quant_acts=quant_acts)
+        want_q = predictor(xs1).cpu().numpy()
+        got_q = np.asarray(q8["eval_fus_raw_foldw"][k]["predict_proba"]
+                           [:len(want_q)])
+        err_q = float(np.abs(got_q - want_q).max())
+        log(f"[eval] fold {k}: batch 1 probabilities against make_predictor "
+            f"max|d| {err:.3e} bf16, {err_q:.3e} int8-all (tol "
+            f"{EVAL_PROB_ATOL}; equal {np.array_equal(got, want)}, "
+            f"{np.array_equal(got_q, want_q)}); explain attributions against "
+            f"the recomputation max|d| {err_attrs:.3e} (tol {bar:.3e}); mean "
+            f"attribution per modality {attrs.mean(axis=0).tolist()}")
+        if max(err, err_q) > EVAL_PROB_ATOL or err_attrs > bar:
+            raise SystemExit(f"fold {k}: the evaluator disagrees with "
+                             f"make_predictor ({err:.3e}, {err_q:.3e}) or the "
+                             f"explain recomputation ({err_attrs:.3e})")
+        # phase 6's weights leave the MRI tokens' input-driven share at
+        # ~1% (measured on an H100), below int8's rounding: the centred bar
+        # is reported, the logits held to phase 4's bars
+        compare_int8(capture(predictor, xs1), seen_bf16, segments,
+                     f"phase 7 fold {k}", hold_centred=False)
+        del predictor, seen_bf16
+    del records["eval"]["_restore_fold:out"], sd
+    gc.collect()
+    torch.cuda.empty_cache()
+    if np.array_equal(raw[0]["predict_proba"], raw[1]["predict_proba"]):
+        raise SystemExit("the two folds gave the same probabilities")
+    d_prob = max(float(np.abs(np.asarray(q8["eval_fus_raw_foldw"][k]
+                                         ["predict_proba"])
+                              - np.asarray(raw[k]["predict_proba"])).max())
+                 for k in folds)
+    log(f"[eval] int8 against bf16 over the {EVAL_KNEES} knees of both "
+        f"folds: max|dprob| {d_prob:.4e} (not held to a limit)")
+    if not torch.isfinite(served).all() or \
+            (served.sum(dim=1) - 1).abs().max().item() > 1e-5:
+        raise SystemExit(f"the served bundle's probabilities: {served}")
+
+    errs = check_eval_inputs(seen)
+    del seen
+
+    for run in ("eval", "int8"):
+        raw_run = pickles[run]["eval_fus_raw_foldw"]
+        lat = {key: [raw_run[k][key] * 1e3 for k in folds]
+               for key in EVAL_KEYS[4:]}
+        log(f"[eval] {run}: ms per knee at batch 16 (per fold, warm-up "
+            f"excluded; the padded batch's 4 knees carry its time): "
+            f"{json.dumps(lat)}  [{card}]")
+    for run in ("eval", "explain", "int8"):
+        rec = records[run]
+        restore = rec["_restore_fold"]
+        epoch = rec.get("explain_epoch" if run == "explain"
+                        else "eval_epoch")
+        log(f"[eval] {run}: {seconds[run]:.2f} s in all; per fold, restore "
+            f"included, {[round(a + b, 3) for a, b in zip(restore, epoch)]}"
+            f" s; restore {[round(t, 3) for t in restore]} s  [{card}]")
+    batches = -(-EVAL_KNEES // EVAL_TESTING["batch_size"])
+    per_batch = [round(t / batches * 1e3, 2)
+                 for t in records["explain"]["explain_epoch"]]
+    log(f"[eval] explain: {per_batch} ms per batch of 16 (5 forwards; per "
+        f"fold)  [{card}]")
+    log(f"[eval] int8 calibration (first 16 rows of the first test batch): "
+        f"{[round(t, 3) for t in records['int8']['calibrate_quant_acts']]} "
+        f"s; calibration and the int8 model's build "
+        f"{[round(t, 3) for t in records['int8']['_quant_predictor']]} s  "
+        f"[{card}]")
+    log(f"[eval] export_serving (fold 0, int8-all, 1 calibration batch): "
+        f"{seconds['export']:.2f} s (calibration "
+        f"{records['export']['calibrate_quant_acts'][0]:.3f} s), bundle "
+        f"{bundle_bytes} bytes, loaded in {seconds['load']:.2f} s; served "
+        f"probabilities of knee 0 {served[0].tolist()}  [{card}]")
+    log(f"[eval] peak device memory {peak_gb:.2f} GB; phase 7 "
+        f"{time.perf_counter() - t_phase:.1f} s  [{card}]")
     return counts, errs
 
 
@@ -2121,7 +2678,13 @@ def main() -> int:
     del sd
     gc.collect()
     torch.cuda.empty_cache()
-    fit_counts, fit_errs = phase_fit(card, train_ms)
+    # phases 6 and 7 share one experiment directory (two ~4.8 GB
+    # checkpoints and a ~1.6 GB bundle)
+    with tempfile.TemporaryDirectory(prefix="fit_") as root:
+        fit_counts, fit_errs = phase_fit(card, train_ms, root)
+        eval_counts, eval_errs = phase_eval(card, root)
+    launches_eval = {k: {run: c[k] for run, c in eval_counts.items()}
+                     for k in ("K1", "K4", "K5")}
 
     src = "oaprogressionmmf_torch/ops/csrc/"
     kernels = [dict(
@@ -2129,8 +2692,9 @@ def main() -> int:
         design=FWD_DESIGN,
         replaces="oaprogressionmmf_tpu/ops/flash_attention.py:54",
         launches=launches, launches_train=train_counts[0],
-        launches_fit=fit_counts["K1"],
+        launches_fit=fit_counts["K1"], launches_eval=launches_eval["K1"],
         max_abs_err=flash["max_abs_err"], max_abs_err_fit=fit_errs["K1"],
+        max_abs_err_eval=eval_errs["K1"],
         ms=flash["ms"],
         plain_ms=flash["plain_ms"], bound_ms=flash["bound_ms"],
         bound_by=flash["bound_by"], library_ms=flash["library_ms"],
@@ -2155,7 +2719,9 @@ def main() -> int:
         replaces="oaprogressionmmf_tpu/ops/fused_stem.py:34",
         launches=stem_launches, launches_per_request=stem_launches / REQUESTS,
         launches_train=0, launches_fit=fit_counts["K4"],
+        launches_eval=launches_eval["K4"],
         max_abs_err=stem["max_abs_err"], max_abs_err_fit=fit_errs["K4"],
+        max_abs_err_eval=eval_errs["K4"],
         ms=stem["ms"],
         plain_ms=stem["plain_ms"], unfused_ms=stem["unfused_ms"],
         unfused_computes="F.batch_norm (eval), F.relu, F.max_pool2d: three "
@@ -2170,8 +2736,9 @@ def main() -> int:
         replaces="scripts/exp_pallas_conv.py:28", design=K5_DESIGN,
         launches=k5_launches, launches_per_request=k5_launches / REQUESTS,
         launches_int8_mode=int8["int8"]["launches"]["K5"],
-        launches_fit=fit_counts["K5"],
-        max_abs_err=k5["max_abs_err"], ms=k5["ms"], plain_ms=k5["plain_ms"],
+        launches_fit=fit_counts["K5"], launches_eval=launches_eval["K5"],
+        max_abs_err=k5["max_abs_err"], max_abs_err_eval=eval_errs["K5"],
+        ms=k5["ms"], plain_ms=k5["plain_ms"],
         bound_ms=k5["bound_ms"], bound_by=k5["bound_by"],
         library_ms=k5["library_ms"],
         library_computes="torch._int_mm on an explicit int8 im2col (a 1x1: "
@@ -2185,6 +2752,8 @@ def main() -> int:
         per_shape=k5["per_shape"]))
     log(f"[int8] ms per request: {json.dumps(int8)}")
     log(f"[family] ms per request: {json.dumps(family_ms)}")
+    log(f"[env] chip_smoke.py ran {time.perf_counter() - T_START:.1f} s "
+        f"(from after its imports of numpy and torch)")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -312,13 +312,17 @@ class ProgressionTrainer:
     initial weights come from torch's initialization under seed 0. The
     bits differ from the JAX package's ``jax.random`` streams.
 
+    ``resume=False`` leaves the fold's last checkpoint unread: the
+    evaluator takes the trainer for its loaders and restores each fold's
+    weights itself.
+
     ``timing`` accumulates seconds: ``loader_wait`` (the loop blocked on
     the loader's queue), ``train`` and ``val`` (the epochs' loops, waits
     included), ``ckpt_write``, ``ckpt_read``; and counts ``train_steps``,
     ``val_batches`` and ``ckpt_bytes`` (the last file written)."""
 
     def __init__(self, config: dict, fold_idx: int, *, device=None,
-                 datasets=None):
+                 datasets=None, resume: bool = True):
         self.device = resolve_device(device)
         self.config = config
         self.fold_idx = fold_idx
@@ -379,6 +383,7 @@ class ProgressionTrainer:
         downscale = model_cfg.get("downscale") or None
         if downscale:
             downscale = [list(f) for f in downscale]
+        self.downscale = downscale
         self.steps_per_epoch = max(1,
                                    self.loaders["train"].batches_per_epoch())
         dtype = COMPUTE_DTYPES[config["runtime"]["compute_dtype"]]
@@ -404,7 +409,7 @@ class ProgressionTrainer:
         self.timing = dict(loader_wait=0.0, train=0.0, val=0.0,
                            ckpt_write=0.0, ckpt_read=0.0, train_steps=0,
                            val_batches=0, ckpt_bytes=0)
-        self._init_state()
+        self._init_state(resume)
 
     # ------------------------------------------------------------------
 
@@ -430,7 +435,7 @@ class ProgressionTrainer:
             torch.cuda.synchronize(self.device)
         self.timing["ckpt_read"] += time.perf_counter() - t0
 
-    def _init_state(self):
+    def _init_state(self, resume: bool = True):
         model_cfg = self.config["model"]
         check_pretrained_fes(model_cfg)
         # explicit weight restore: a checkpoint payload of either package,
@@ -446,7 +451,7 @@ class ProgressionTrainer:
             logger.info(f"Restored weights from {path_w}")
 
         self.start_epoch = 0
-        last = self.ckpt.get_last_ckpt()
+        last = self.ckpt.get_last_ckpt() if resume else None
         if last is not None:
             self._restore(last)
             self.start_epoch = self.runtime.step // self.steps_per_epoch

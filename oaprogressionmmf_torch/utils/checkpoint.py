@@ -231,6 +231,16 @@ def _to_device(tree, device):
     return tree.to(device) if isinstance(tree, torch.Tensor) else tree
 
 
+def load_model_variables(path, device) -> dict:
+    """The ``params`` and ``batch_stats`` of a checkpoint of either
+    package as tensors on ``device``, for
+    :func:`~.convert.from_jax_variables`. The optimizer state stays in the
+    file's buffer: it is not moved."""
+    payload = load_ckpt(path)
+    return _to_device({"params": payload["params"],
+                       "batch_stats": payload["batch_stats"]}, device)
+
+
 def load_runtime_payload(model_name: str, runtime, payload: dict,
                          plateau=None) -> None:
     """Restore ``runtime`` (model, BatchNorm statistics, optimizer state,

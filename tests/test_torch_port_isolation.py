@@ -57,15 +57,30 @@ def test_port_imports_without_jax_or_the_jax_package():
     assert proc.stdout.strip().endswith("ok")
 
 
+# the evaluation half and the apps, named so that a rename cannot drop
+# them from the walk unnoticed
+EVAL_MODULES = ("oaprogressionmmf_torch.config",
+                "oaprogressionmmf_torch.train.evaluator",
+                "oaprogressionmmf_torch.analysis",
+                "oaprogressionmmf_torch.run",
+                "oaprogressionmmf_torch.run.train_prog_fus",
+                "oaprogressionmmf_torch.run.eval_prog_fus",
+                "oaprogressionmmf_torch.run.export_serving",
+                "oaprogressionmmf_torch.run.analyze_results")
+
+
 def test_port_imports_without_the_host_packages():
-    """The machine with the card has no pandas, scikit-learn, PyYAML or
-    PIL: every module of the port imports without them (the data layer
-    imports pandas and PIL inside the functions that read data)."""
+    """The machine with the card has no pandas, scikit-learn, PyYAML, PIL
+    or matplotlib: every module of the port imports without them (the data
+    layer imports pandas and PIL inside the functions that read data; the
+    config loader PyYAML, the analysis pandas, SciPy and matplotlib inside
+    the functions that need them)."""
+    assert set(EVAL_MODULES) <= set(PORT_MODULES)
     code = (
         "import importlib, sys\n"
         "for m in ('jax', 'jaxlib', 'flax', 'msgpack',\n"
         "          'oaprogressionmmf_tpu', 'pandas', 'sklearn', 'yaml',\n"
-        "          'PIL'):\n"
+        "          'PIL', 'matplotlib'):\n"
         "    sys.modules[m] = None\n"
         f"for m in {PORT_MODULES!r}:\n"
         "    importlib.import_module(m)\n"
@@ -126,6 +141,22 @@ def test_entry_points_raise_without_a_gpu_unless_cpu_is_asked(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ProgressionTrainer({"model": FLAGSHIP_SMALL}, 0, device=None)
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_evaluation_entry_points_raise_without_a_gpu(monkeypatch):
+    """The evaluator and the apps take the card unless the caller asks for
+    the CPU; without a GPU they raise before reading any data."""
+    from oaprogressionmmf_torch.run import (eval_prog_fus, export_serving,
+                                            train_prog_fus)
+    from oaprogressionmmf_torch.train.evaluator import ProgressionEvaluator
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ProgressionEvaluator({"model": FLAGSHIP_SMALL})
+    for app in (train_prog_fus, eval_prog_fus, export_serving):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            app.run({"model": FLAGSHIP_SMALL, "runtime": {},
+                     "training": {"folds": {"idx": 0}}})
 
 
 def test_kernel_build_is_keyed_by_its_source(tmp_path, monkeypatch):

@@ -1,7 +1,9 @@
-"""The port's validation metrics against the JAX package's.
+"""The port's metrics against the JAX package's.
 
 ``calc_metrics_v2`` must equal JAX's key by key after its rounding to 3
-places (exactly; NaN where JAX gives NaN). Its scikit-learn scores have
+places (exactly; NaN where JAX gives NaN), also with ``bootstrap`` (the
+same global ``np.random`` draws, so the same tuples exactly) and
+``with_curves`` (the curves within 1e-12). Its scikit-learn scores have
 numpy versions in the port (the machine with the card has no
 scikit-learn); those are held against scikit-learn within 1e-12 on
 seeded scores with planted ties, where scikit-learn's tie handling (one
@@ -13,6 +15,7 @@ import numpy as np
 import pytest
 import sklearn.metrics as sk
 
+from oaprogressionmmf_tpu.utils import metrics as jax_metrics
 from oaprogressionmmf_tpu.utils.metrics import \
     calc_metrics_v2 as jax_calc_metrics_v2
 from oaprogressionmmf_torch.utils import metrics
@@ -61,13 +64,105 @@ def test_calc_metrics_v2_equals_jax(case):
             assert type(g) is type(w), (k, type(g), type(w))
 
 
+def _assert_same(got, want, atol=0.0):
+    """Equal trees of scalars, tuples and arrays (arrays within atol)."""
+    if isinstance(want, (tuple, list)):
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            _assert_same(g, w, atol)
+    elif isinstance(want, np.ndarray) and want.ndim:
+        np.testing.assert_allclose(got, want, rtol=0, atol=atol)
+    elif isinstance(want, float) and np.isnan(want):
+        assert np.isnan(got)
+    else:
+        assert got == want or abs(got - want) <= atol, (got, want)
+
+
 def test_calc_metrics_v2_refuses_what_is_not_ported():
+    """An unknown target raises, as in JAX. The bootstrap and the curves,
+    which the port refused before the evaluator came, now give JAX's
+    values (the tests below hold them on every case)."""
     y, proba = CASES["random_16"]
-    for kw in ({"bootstrap": True}, {"with_curves": True}):
-        with pytest.raises(NotImplementedError, match="evaluator"):
-            metrics.calc_metrics_v2(y, proba, target="prog_kl_48", **kw)
     with pytest.raises(ValueError, match="Unknown target"):
         metrics.calc_metrics_v2(y, proba, target="kl")
+    for kw in ({"bootstrap": True, "kws_bs": {"n_bootstrap": 20}},
+               {"with_curves": True}):
+        got = metrics.calc_metrics_v2(y, proba, target="prog_kl_48", **kw)
+        want = jax_calc_metrics_v2(y, proba, target="prog_kl_48", **kw)
+        assert list(got) == list(want)
+
+
+BOOTSTRAP_CASES = [c for c in sorted(CASES)
+                   if c not in ("single_class", "one_positive")]
+
+
+@pytest.mark.parametrize("case", BOOTSTRAP_CASES)
+def test_calc_metrics_v2_bootstrap_and_curves_equal_jax(case):
+    """The bootstrap replays JAX's draws: each (value, stderr, ci_low,
+    ci_high) equal after the rounding to 3 places; the curves within
+    ATOL."""
+    y, proba = CASES[case]
+    kw = {"kws_bs": {"n_bootstrap": 50, "seed": 3},
+          "kws_ppv": {"pi0": 0.15}}
+    got = metrics.calc_metrics_v2(y, proba, "prog_kl_48", bootstrap=True,
+                                  **kw)
+    want = jax_calc_metrics_v2(y, proba, "prog_kl_48", bootstrap=True, **kw)
+    assert list(got) == list(want)
+    for k in want:
+        _assert_same(got[k], want[k])
+    got = metrics.calc_metrics_v2(y, proba, "prog_kl_48", with_curves=True)
+    want = jax_calc_metrics_v2(y, proba, "prog_kl_48", with_curves=True)
+    assert list(got) == list(want)
+    for k in want:
+        _assert_same(got[k], want[k], ATOL)
+
+
+@pytest.mark.parametrize("stratified", [True, False])
+def test_calc_bootstrap_replays_jax_draws(stratified):
+    """calc_bootstrap on the same metric gives JAX's tuple exactly (the
+    same resamples), and leaves numpy's global generator where JAX's
+    leaves it."""
+    y, proba = _case(7, 60)
+    kw = {"n_bootstrap": 40, "seed": 5, "stratified": stratified}
+    got = metrics.calc_bootstrap(metrics.roc_auc_score, y, proba[:, 1], **kw)
+    after = np.random.rand()
+    want = jax_metrics.calc_bootstrap(metrics.roc_auc_score, y, proba[:, 1],
+                                      **kw)
+    assert np.random.rand() == after
+    assert got == want
+    got = metrics.calc_bootstrap(metrics.average_precision_score, y,
+                                 proba[:, 1], **kw)
+    want = jax_metrics.calc_bootstrap(sk.average_precision_score, y,
+                                      proba[:, 1], **kw)
+    _assert_same(got, want, ATOL)
+
+
+@pytest.mark.parametrize("case", BOOTSTRAP_CASES)
+def test_calibrated_f1_and_recall_range_equal_jax(case):
+    y, proba = CASES[case]
+    p = proba[:, 1]
+    for pi0 in (None, 0.15):
+        _assert_same(metrics.bestf1score_calib(y, p, pi0=pi0),
+                     jax_metrics.bestf1score_calib(y, p, pi0=pi0), ATOL)
+        # no predicted positive: both divide by zero
+        outcome = []
+        for fn in (metrics.f1score_calib, jax_metrics.f1score_calib):
+            try:
+                outcome.append(fn(y, p > 0.5, pi0=pi0))
+            except ZeroDivisionError as e:
+                outcome.append(type(e))
+        if outcome[1] is ZeroDivisionError:
+            assert outcome[0] is ZeroDivisionError
+        else:
+            _assert_same(outcome[0], outcome[1], ATOL)
+    for rr in ((0.0, 1.0), (0.2, 0.8)):
+        _assert_same(metrics.avg_precision_at_recall_range(y, p, rr),
+                     jax_metrics.avg_precision_at_recall_range(y, p, rr),
+                     ATOL)
+    y3 = np.r_[y, 2]
+    pred3 = np.r_[(p > 0.5).astype(int), 1]
+    _assert_same(metrics.mc_bacc(y3, pred3),
+                 jax_metrics.mc_bacc(y3, pred3), ATOL)
 
 
 SCORE_CASES = [c for c in sorted(CASES) if c != "single_class"]

@@ -171,3 +171,19 @@ def jax_augment_draws(key, modals, batch):
                 col.append(float(v))
         draws.append(AugmentDraws(*(torch.tensor(c) for c in cols)))
     return draws
+
+
+def assert_percent_close(got_pct, want_pct, got_attr, want_attr):
+    """Explain percentages |a_i| / Σ|a| · 100 (rounded to 3 places) of
+    two runs whose attributions differ by δ in a row: held to the
+    first-order bound 100 · (1 + n) · δ / Σ|a| of that row, plus the
+    rounding (1e-3)."""
+    got_pct, want_pct = np.asarray(got_pct), np.asarray(want_pct)
+    got_attr, want_attr = np.asarray(got_attr), np.asarray(want_attr)
+    n = want_attr.shape[1]
+    delta = np.abs(got_attr - want_attr).max(axis=1, keepdims=True)
+    bound = 100 * (1 + n) * delta / np.abs(want_attr).sum(
+        axis=1, keepdims=True) + 1e-3
+    assert (np.abs(got_pct - want_pct) <= bound).all(), \
+        (np.abs(got_pct - want_pct).max(), bound.min())
+    return bound
