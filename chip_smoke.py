@@ -132,7 +132,24 @@ Phases (any failure exits non-zero; nothing is caught):
      K1, K4 and K5 against their plain versions on the phase's own
      inputs, full and padded batches; per-knee latency, seconds per fold,
      restore, explain, calibration and export times, bundle bytes, peak
-     device memory.
+     device memory;
+  8. data preparation: one knee's three MRI series at OAI's sizes written
+     as DICOM with the port's dcmwrite (a SAG 3D DESS of 160 slices of
+     384², explicit VR; a COR IW TSE of 37, implicit VR; a SAG MESE of 27
+     slice locations × 7 echoes, TE 10-70 ms, with a known T2 of 0.01-0.09
+     s per pixel, seeded amplitudes and noise, a block of zero pixels and
+     a slice location without EchoTime) through
+     run/prepare_data_mri_oai.handle_series with no device argument, so
+     the T2 map is fitted on the card; the fit held against the same fit
+     on the CPU (1e-4 relative and 1e-5 s where both are valid; a pixel
+     valid in one only where its float64 fit lies within 1e-4·0.1 s of a
+     clamp bound), 0 at the zero block and the slice without EchoTime, and
+     within 5e-3 of the known T2 elsewhere; each image.nii.gz read back as
+     the dataset reads it, equal to the array that went into the writer,
+     at least the dataset's min_shape, DESS ≤ 255; the seconds of each
+     stage per series, the fit's device ms beside its memory bound, the
+     bytes written and the native gzip route (built with libdeflate or
+     zlib, or unavailable and Python's codec).
 
 Prints progress lines, then a JSON line of kernel records (with the
 per-length times behind each sum), the card line,
@@ -453,6 +470,25 @@ METRIC_KEYS = ("sample_size", "num_pos", "num_neg", "prevalence", "roc_auc",
 # against the double softmax recomputed from the fold-wise pickle
 EVAL_PROB_ATOL = 1e-5
 ENSEMBLE_ATOL = 1e-12
+
+# phase 8 (data preparation): one knee's three MRI series at OAI's sizes,
+# written as DICOM, prepared by run/prepare_data_mri_oai.handle_series
+PREP_SEED = 31
+PREP_ROOT = ("0.C.2", "9000001", "20050101")   # <release>/<patient>/<date>
+PREP_DESS = (384, 384, 160)        # rows, cols, slices; explicit VR
+PREP_TSE = (384, 384, 37)          # implicit VR
+PREP_MESE = (27, 7, 384)           # slice locations, echoes, rows = cols
+PREP_TES_MS = np.linspace(10.0, 70.0, PREP_MESE[1])
+PREP_T2 = (0.01, 0.09)             # s, the known T2 per pixel
+PREP_AMP = (30000.0, 60000.0)
+PREP_NOISE = 1.0                   # Gaussian σ, in counts
+PREP_ZERO = (slice(150, 200), slice(100, 180))   # a block of zero pixels
+PREP_NO_TE = 13                    # the slice location without EchoTime
+T2_VAL_HIGH = 0.1                  # fit_t2_map's clamp bounds: [0, 0.1] s
+T2_RTOL, T2_ATOL = 1e-4, 1e-5      # the card's fit against the CPU's
+T2_FLIP_BAND = 1e-4                # × val_high: where a validity flip may be
+T2_TRUE_RTOL = 5e-3                # against the known T2
+                                   # (tests/test_ops_attention_t2.py:117)
 
 
 def log(msg: str) -> None:
@@ -2303,14 +2339,18 @@ def tagged_batches(tag: list):
 
 
 @contextlib.contextmanager
-def timed(owner, names, record: dict, keep=()):
+def timed(owner, names, record: dict, keep=(), keep_args=()):
     """Wrap ``owner``'s attributes ``names`` (methods or functions): each
     call's seconds, the card synchronized, go to ``record[name]``; the
-    results of those in ``keep`` to ``record[name + ":out"]``."""
+    results of those in ``keep`` to ``record[name + ":out"]``, the
+    arguments (args, kwargs) of those in ``keep_args`` to
+    ``record[name + ":in"]``."""
     real = {n: getattr(owner, n) for n in names}
 
     def wrap(name, fn):
         def call(*args, **kwargs):
+            if name in keep_args:
+                record.setdefault(name + ":in", []).append((args, kwargs))
             t0 = time.perf_counter()
             out = fn(*args, **kwargs)
             torch.cuda.synchronize()
@@ -2639,6 +2679,283 @@ def phase_eval(card: str, root: str) -> tuple:
     return counts, errs
 
 
+def write_prep_series(root: Path) -> tuple:
+    """Write phase 8's three series under ``root`` with the port's dcmwrite
+    in the ``<release>/<patient>/<date>/<series>`` layout; returns their
+    directories and the MESE's known T2 map (slices, rows, cols)."""
+    from oaprogressionmmf_torch.utils.dicom import dcmwrite
+
+    rng = np.random.default_rng(PREP_SEED)
+    base = root.joinpath(*PREP_ROOT)
+
+    def write(sdir, i, pix, series, explicit=True, **extra):
+        sdir.mkdir(parents=True, exist_ok=True)
+        elements = {
+            "PatientID": PREP_ROOT[1], "SeriesDescription": series,
+            "Rows": pix.shape[0], "Columns": pix.shape[1],
+            "BitsAllocated": 16, "PixelRepresentation": 0,
+            "SamplesPerPixel": 1, "PixelSpacing": [0.36, 0.36],
+            "PhotometricInterpretation": "MONOCHROME2",
+            "BodyPartExamined": "KNEE", "InstanceNumber": i + 1,
+            "PixelData": pix.astype(np.uint16).tobytes(), **extra}
+        dcmwrite(sdir / f"{i:04d}.dcm", elements, explicit=explicit)
+
+    def phantom(rows, cols, level, spread):
+        """A smooth field with noise, as an MR slice is smoother than
+        noise (its compression is closer to a real scan's)."""
+        r, c = np.meshgrid(np.linspace(-1, 1, rows), np.linspace(-1, 1, cols),
+                           indexing="ij")
+        field = level * np.exp(-(r * r + c * c)) + spread * np.cos(3 * r) * c
+        return field + rng.normal(0.0, spread / 8, (rows, cols))
+
+    dess = base / "10001"
+    rows, cols, n = PREP_DESS
+    for i in range(n):   # sagittal: rows along +y (P), cols along -z (I)
+        pix = np.clip(phantom(rows, cols, 1500.0, 300.0), 0, 2040)
+        write(dess, i, pix, "SAG_3D_DESS_RIGHT", SliceThickness=0.7,
+              ImagePositionPatient=[-0.7 * i, 0.0, 0.0],
+              ImageOrientationPatient=[0, 1, 0, 0, 0, -1])
+    tse = base / "10002"
+    rows, cols, n = PREP_TSE
+    for i in range(n):   # coronal: rows along -x (R), cols along -z (I)
+        pix = np.clip(phantom(rows, cols, 20000.0, 4000.0), 0, 65535)
+        write(tse, i, pix, "COR_IW_TSE_RIGHT", explicit=False,
+              SliceThickness=3.0, ImagePositionPatient=[0.0, -3.0 * i, 0.0],
+              ImageOrientationPatient=[-1, 0, 0, 0, 0, -1])
+    mese = base / "10003"
+    n, echoes, size = PREP_MESE
+    t2 = rng.uniform(*PREP_T2, (n, size, size))
+    amp = rng.uniform(*PREP_AMP, (n, size, size))
+    for s in range(n):
+        for e in range(echoes):
+            pix = amp[s] * np.exp(-(PREP_TES_MS[e] / 1e3) / t2[s])
+            pix = np.clip(np.rint(pix + rng.normal(0.0, PREP_NOISE,
+                                                   pix.shape)), 0, 65535)
+            pix[PREP_ZERO] = 0
+            te = {} if s == PREP_NO_TE else {"EchoTime": PREP_TES_MS[e]}
+            write(mese, s * echoes + e, pix, "SAG_T2_MAP_RIGHT",
+                  SliceThickness=3.0, SliceLocation=float(s),
+                  EchoNumbers=e + 1,
+                  ImageOrientationPatient=[0, 1, 0, 0, 0, -1], **te)
+    return (dess, tse, mese), t2
+
+
+def unclamped_t2_f64(ys: np.ndarray, xs: np.ndarray) -> np.ndarray:
+    """-1/B of fit_t2_map's normal equations in float64 (numpy); the echo
+    times ``xs`` broadcast against the samples ``ys`` (echoes last)."""
+    xs = xs.astype(np.float64)
+    ys = ys.astype(np.float64)
+    with np.errstate(all="ignore"):
+        lny = np.log(ys)
+        s_x2_y = (xs * xs * ys).sum(-1)
+        s_y_lny = (ys * lny).sum(-1)
+        s_x_y = (xs * ys).sum(-1)
+        s_x_y_lny = (xs * ys * lny).sum(-1)
+        s_y = ys.sum(-1)
+        b = (s_y * s_x_y_lny - s_x_y * s_y_lny) / (s_y * s_x2_y
+                                                   - s_x_y * s_x_y)
+        return -1.0 / b
+
+
+def check_t2_fit(got: np.ndarray, vol: np.ndarray, tes: np.ndarray,
+                 t2_true: np.ndarray) -> dict:
+    """The card's fit against the CPU's on the same float32 volume (1e-4
+    relative and 1e-5 s, both, where both are valid; a validity flip only
+    where the float64 fit lies within T2_FLIP_BAND·val_high of a clamp
+    bound), the slice without EchoTime and the zero block 0, and the known
+    T2 within T2_TRUE_RTOL on the pixels with signal. Exits outside a
+    bar."""
+    from oaprogressionmmf_torch.ops.t2_fit import fit_t2_map
+    t0 = time.perf_counter()
+    cpu = fit_t2_map(vol, tes, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    valid_g, valid_c = got != 0, cpu != 0
+    both = valid_g & valid_c
+    diff = np.abs(got[both] - cpu[both])
+    rel = diff / np.abs(cpu[both])
+    flips = valid_g != valid_c
+    t64 = unclamped_t2_f64(vol[flips], tes[np.nonzero(flips)[0]])
+    near = np.minimum(np.abs(t64), np.abs(t64 - T2_VAL_HIGH))
+    signal = np.ones(got.shape, bool)
+    signal[PREP_NO_TE] = False
+    signal[(slice(None),) + PREP_ZERO] = False
+    rel_true = np.abs(got[signal] - t2_true[signal]) / t2_true[signal]
+    out = {"max_abs_err_vs_cpu": float(diff.max(initial=0.0)),
+           "max_rel_err_vs_cpu": float(rel.max(initial=0.0)),
+           "validity_flips": int(flips.sum()),
+           "max_flip_distance_s": float(near.max(initial=0.0)),
+           "max_rel_err_vs_known": float(rel_true.max()),
+           "valid_pixels": int(valid_g.sum()), "pixels": int(got.size),
+           "cpu_fit_s": round(cpu_s, 3)}
+    log(f"[prep] T2 fit: the card against the CPU and the known T2: "
+        f"{json.dumps(out)}")
+    if (np.any(diff > T2_ATOL) or np.any(rel > T2_RTOL)
+            or not np.all(near <= T2_FLIP_BAND * T2_VAL_HIGH)  # NaN fails
+            or got[~signal].any() or cpu[~signal].any()
+            or rel_true.max() > T2_TRUE_RTOL):
+        raise SystemExit(f"T2 fit outside its bars: {out}")
+    return out
+
+
+def gzip_routes(paths: dict, card: str, reps: int = 3) -> dict:
+    """The native gzip route against Python's codec on the prepared files:
+    ``nifti_to_numpy`` as the dataset reads each (inflate) and
+    ``write_nifti`` of the same array (deflate), timed with the route as
+    it is and with ``utils/formats.py``'s native call switched off (the
+    branch it takes when the library is unavailable); best of ``reps``.
+    Both routes must give the same array and the same inflated bytes."""
+    import gzip
+
+    from oaprogressionmmf_torch.data.dataset import _SEQ_SPEC
+    from oaprogressionmmf_torch.utils import formats
+
+    def best(fn):
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            res = fn()
+            times.append(time.perf_counter() - t0)
+        return min(times) * 1e3, res
+
+    out = {}
+    native = (formats.inflate_gz, formats.deflate_gz)
+    python = (lambda path: None, lambda data, path, level=6: False)
+    for seq, path in paths.items():
+        remap = {"ipr": {"ras_to_ipr": True},
+                 "irp": {"ras_to_irp": True}}[_SEQ_SPEC[seq]["reader"]]
+        data, affine = formats.read_nifti(path, preserve_dtype=True)
+        want, _ = formats.nifti_to_numpy(path, preserve_dtype=True, **remap)
+        with gzip.open(path, "rb") as f:
+            want_bytes = f.read()
+        rec = out[seq] = {}
+        for name, route in (("native", native), ("python", python)):
+            dst = Path(path).with_name(f"{name}.nii.gz")
+            formats.inflate_gz, formats.deflate_gz = route
+            try:
+                rec[f"read_ms_{name}"], (back, _) = best(
+                    lambda: formats.nifti_to_numpy(path, preserve_dtype=True,
+                                                   **remap))
+                rec[f"write_ms_{name}"], _ = best(
+                    lambda: formats.write_nifti(data, dst, affine=affine))
+            finally:
+                formats.inflate_gz, formats.deflate_gz = native
+            rec[f"bytes_{name}"] = dst.stat().st_size
+            with gzip.open(dst, "rb") as f:
+                if f.read() != want_bytes or not np.array_equal(back, want):
+                    raise SystemExit(f"{seq}: the {name} gzip route gave "
+                                     f"other bytes or another array")
+    log(f"[prep] gzip, native route against Python's codec (ms, best of "
+        f"{reps}; read = nifti_to_numpy as the dataset reads, write = "
+        f"write_nifti; the native route deflates only in a libdeflate "
+        f"build, at level 6, Python's codec at level 9): {json.dumps(out)}"
+        f"  [{card}]")
+    return out
+
+
+def phase_prep(card: str) -> dict:
+    """Data preparation (phase 8): phase 8's DICOM series through the
+    port's prepare_data_mri_oai.handle_series with no device argument (the
+    T2 fit on the card); the fit held against the CPU's and the known T2;
+    each written image.nii.gz read back as the dataset reads it, equal to
+    the array that went into the writer and at least the dataset's
+    min_shape. Returns the phase's record."""
+    from oaprogressionmmf_torch.data.dataset import _SEQ_SPEC
+    from oaprogressionmmf_torch.ops.t2_fit import fit_t2_map_torch
+    from oaprogressionmmf_torch.run import prepare_data_mri_oai as prep
+    from oaprogressionmmf_torch.utils import native_io
+    from oaprogressionmmf_torch.utils.formats import nifti_to_numpy
+
+    t_phase = time.perf_counter()
+    route = native_io.route()
+    log(f"[prep] native gzip: {route} (the library built with g++ from "
+        f"oaprogressionmmf_torch/native/fast_inflate.cpp; 'unavailable' "
+        f"means Python's gzip codec both ways)")
+    stages = ("_read_series_slices", "assemble_4d_mese", "reorient_to",
+              "preproc_compress_series", "fit_t2_map", "numpy_to_nifti")
+    record = {}
+    with tempfile.TemporaryDirectory(prefix="prep_") as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        series, t2_true = write_prep_series(root / "raw")
+        log(f"[prep] wrote {sum(len(list(d.iterdir())) for d in series)} "
+            f"DICOM files (DESS {PREP_DESS}, TSE {PREP_TSE}, MESE "
+            f"{PREP_MESE[0]} slices x {PREP_MESE[1]} echoes of "
+            f"{PREP_MESE[2]}²) in {time.perf_counter() - t0:.2f} s")
+        config = {"dir_root_output": str(root / "out")}
+        per_series = {}
+        for sdir in series:
+            rec = {}
+            with timed(prep, stages, rec, keep=("fit_t2_map",),
+                       keep_args=("fit_t2_map", "numpy_to_nifti")):
+                t0 = time.perf_counter()
+                meta = prep.handle_series(config, str(sdir))
+                total = time.perf_counter() - t0
+            if meta is None:
+                raise SystemExit(f"handle_series skipped {sdir}")
+            per_series[meta["sequence"]] = (meta, rec, total)
+
+        out = {"native_route": route, "series": {}}
+        for seq, (meta, rec, total) in per_series.items():
+            (stack, path), kw = rec["numpy_to_nifti:in"][0]
+            spec = _SEQ_SPEC[seq]
+            remap = {"ipr": {"ras_to_ipr": True},
+                     "irp": {"ras_to_irp": True}}[spec["reader"]]
+            back, spacings = nifti_to_numpy(path, preserve_dtype=True,
+                                            **remap)
+            shape_ok = all(a >= b for a, b in zip(back.shape,
+                                                  spec["min_shape"]))
+            if (back.dtype != stack.dtype or back.shape != stack.shape
+                    or not np.array_equal(back, stack) or not shape_ok
+                    or (seq == "SAG_3D_DESS" and back.max() > 255)):
+                raise SystemExit(
+                    f"{seq}: read back {back.dtype} {back.shape} against "
+                    f"the writer's {stack.dtype} {stack.shape} (equal: "
+                    f"{np.array_equal(back, stack)}), min_shape "
+                    f"{spec['min_shape']}")
+            secs = {k: round(sum(v), 3) for k, v in rec.items()
+                    if not k.endswith((":in", ":out"))}
+            out["series"][seq] = s_rec = {
+                "shape": list(back.shape), "dtype": str(back.dtype),
+                "bytes_written": Path(path).stat().st_size,
+                "bytes_raw": int(back.nbytes), "seconds": secs,
+                "seconds_total": round(total, 3)}
+            log(f"[prep] {seq}: {json.dumps(s_rec)}; read back equal to "
+                f"the writer's array, min_shape {spec['min_shape']} met  "
+                f"[{card}]")
+        out["gzip"] = gzip_routes(
+            {seq: rec["numpy_to_nifti:in"][0][0][1]
+             for seq, (_, rec, _) in per_series.items()}, card)
+
+        # the fit: the path's volume and its map from the card
+        meta, rec, _ = per_series["SAG_T2_MAP"]
+        (vol, tes), kw = rec["fit_t2_map:in"][0]
+        # where handle_series with no device argument resolves: the card
+        if kw.get("device") != prep.resolve_device() \
+                or vol.dtype != np.float32:
+            raise SystemExit(f"the fit was asked for device "
+                             f"{kw.get('device')} with a {vol.dtype} volume")
+        fit = check_t2_fit(rec["fit_t2_map:out"][0], vol, tes, t2_true)
+        vol_d = torch.from_numpy(vol).cuda()
+        tes_d = torch.from_numpy(tes).cuda()
+        dev_ms = time_ms(lambda: fit_t2_map_torch(vol_d, tes_d), 20)
+        nbytes = vol.nbytes + tes.nbytes + vol[..., 0].nbytes
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        fit.update(device_ms=dev_ms, bound_ms=bound_ms, bound_by="bytes",
+                   call_s=round(sum(rec["fit_t2_map"]), 4),
+                   volume=list(vol.shape))
+        out["t2_fit"] = fit
+        log(f"[prep] T2 fit on the card: {dev_ms:.4f} ms of device time "
+            f"for a {list(vol.shape)} float32 volume, against a "
+            f"{bound_ms:.4f} ms bound (the volume read once, the map "
+            f"written once, at {HBM_BYTES_PER_S / 1e12:.2f} TB/s); the "
+            f"path's call, copies in and out included, "
+            f"{fit['call_s'] * 1e3:.1f} ms  [{card}]")
+        del vol_d, tes_d
+    out["seconds"] = round(time.perf_counter() - t_phase, 1)
+    log(f"[prep] phase 8 {out['seconds']} s  [{card}]")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2685,6 +3002,9 @@ def main() -> int:
         eval_counts, eval_errs = phase_eval(card, root)
     launches_eval = {k: {run: c[k] for run, c in eval_counts.items()}
                      for k in ("K1", "K4", "K5")}
+    gc.collect()
+    torch.cuda.empty_cache()
+    prep = phase_prep(card)
 
     src = "oaprogressionmmf_torch/ops/csrc/"
     kernels = [dict(
@@ -2752,6 +3072,7 @@ def main() -> int:
         per_shape=k5["per_shape"]))
     log(f"[int8] ms per request: {json.dumps(int8)}")
     log(f"[family] ms per request: {json.dumps(family_ms)}")
+    log(f"[prep] {json.dumps(prep)}")
     log(f"[env] chip_smoke.py ran {time.perf_counter() - T_START:.1f} s "
         f"(from after its imports of numpy and torch)")
     print(json.dumps({"kernels": kernels}))

@@ -69,18 +69,33 @@ EVAL_MODULES = ("oaprogressionmmf_torch.config",
                 "oaprogressionmmf_torch.run.analyze_results")
 
 
+# the data-preparation layer, named for the same reason
+PREP_MODULES = ("oaprogressionmmf_torch.utils.dicom",
+                "oaprogressionmmf_torch.utils.native_io",
+                "oaprogressionmmf_torch.utils.formats",
+                "oaprogressionmmf_torch.utils.sas",
+                "oaprogressionmmf_torch.ops.t2_fit",
+                "oaprogressionmmf_torch.data.t2_mapping",
+                "oaprogressionmmf_torch.prior_art",
+                "oaprogressionmmf_torch.prior_art.tiulpin2019",
+                "oaprogressionmmf_torch.run.prepare_data_mri_oai",
+                "oaprogressionmmf_torch.run.prepare_data_xr_oulu",
+                "oaprogressionmmf_torch.run.prepare_targets_oai")
+
+
 def test_port_imports_without_the_host_packages():
-    """The machine with the card has no pandas, scikit-learn, PyYAML, PIL
-    or matplotlib: every module of the port imports without them (the data
-    layer imports pandas and PIL inside the functions that read data; the
-    config loader PyYAML, the analysis pandas, SciPy and matplotlib inside
-    the functions that need them)."""
+    """The machine with the card has no pandas, scikit-learn, PyYAML, PIL,
+    cv2 or matplotlib: every module of the port imports without them (the
+    data layer and the prep apps import pandas and PIL inside the functions
+    that read data; the config loader and the apps PyYAML, the analysis
+    pandas, SciPy and matplotlib inside the functions that need them)."""
     assert set(EVAL_MODULES) <= set(PORT_MODULES)
+    assert set(PREP_MODULES) <= set(PORT_MODULES)
     code = (
         "import importlib, sys\n"
         "for m in ('jax', 'jaxlib', 'flax', 'msgpack',\n"
         "          'oaprogressionmmf_tpu', 'pandas', 'sklearn', 'yaml',\n"
-        "          'PIL', 'matplotlib'):\n"
+        "          'PIL', 'cv2', 'matplotlib'):\n"
         "    sys.modules[m] = None\n"
         f"for m in {PORT_MODULES!r}:\n"
         "    importlib.import_module(m)\n"
