@@ -149,7 +149,42 @@ Phases (any failure exits non-zero; nothing is caught):
      at least the dataset's min_shape, DESS ≤ 255; the seconds of each
      stage per series, the fit's device ms beside its memory bound, the
      bytes written and the native gzip route (built with libdeflate or
-     zlib, or unavailable and Python's codec).
+     zlib, or unavailable and Python's codec);
+  9. parallelism and the paths the port added last, at the flagship's
+     full width with prog_fus.yaml's training config: (a) a single-rank
+     NCCL process group (parallel.dcn.initialize_distributed): float32
+     batch-2 steps without dropout (phase 5b's config) through the
+     data-parallel step (global BatchNorm, the global loss, the gradient
+     all-reduce) against TrainRuntime.train_step, each step from the same
+     state on the same draws (loss 1e-5 relative, every parameter within
+     Adam's per-step bound), one float64 step of each with the plain
+     attention (Adam's first moment 1e-6 of its largest entry), then four
+     DP steps on knees of their own and a validation batch with every
+     launch count set to 0 just before and read just after (K1 60, K2 48,
+     K3 48, K4 3), and two timed bf16 DP steps at batch 8 with a
+     validation batch (K1 36, K2 24, K3 24, K4 3); (d) that float32
+     runtime saved with ckpt_backend: orbax (a torch.distributed.checkpoint
+     directory), read back and restored, every tensor torch.equal; (c)
+     training.augment_full_res=false: a bf16 step at batch 8 after a
+     warm-up step, timed, and a validation batch (K1 24, K2 12, K3 12, K4
+     3); (b) a dp×tp = 1×2 grid in two processes on the card (gloo, which
+     takes CUDA tensors; NCCL refuses two ranks on one device): the FeaTs
+     split over the tensor group (4 local heads through K1-K3), (a)'s four
+     float32 steps and a validation batch, held against (a)'s DP run with
+     __graft_entry__.py's bars (losses rtol 5e-3, atol 1e-5; parameters
+     rtol 2e-2, atol 2e-3), launches per rank as (a)'s; then one float64
+     step of the grid with the plain attention, its gathered Adam first
+     moment against (a)'s float64 DP step's at (a)'s bar (1e-6 of each
+     tensor's largest entry): the parameter bar cannot see a wrong
+     gradient after 4 steps at lr 1e-5, this one does.
+
+``python3 chip_smoke.py dp-cards N`` (not part of the default run, which
+needs one card) trains data-parallel over N cards, one NCCL process each
+(``dp-worker``): the first float32 step of N × 2 knees against one
+process's step on all of them (loss 1e-5 relative, each parameter within
+Adam's per-step bound), 12 launches of each of K1-K3 on every rank, then
+bf16 DP steps at batch 8 a card, timed against one process's batch-8
+step.
 
 Prints progress lines, then a JSON line of kernel records (with the
 per-length times behind each sum), the card line,
@@ -161,6 +196,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import functools
 import gc
 import importlib
 import json
@@ -172,6 +208,7 @@ import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -243,6 +280,9 @@ FWD_DESIGN = {
 # ~0.1 s of device-side sleep: longer than the host takes to queue a
 # timing loop, so the loop's launches run back to back on the card
 SLEEP_CYCLES = 200_000_000
+# phase 3d queues at most 20 calls of a few launches each behind its
+# sleeps (4 timings at each of 87 conv shapes): ~15 ms covers that
+K5_SLEEP_CYCLES = 30_000_000
 # |O − O_plain| ≤ min(out, out_rel · max|O_plain|) and |lse − lse_plain|
 # ≤ lse: bf16 output rounding alone is 2^-9 of |O|, so 2e-2 of max|O|
 # leaves some 5× headroom and still catches a 25% error at N = 2432
@@ -432,6 +472,31 @@ FIT_TAGS = ("fold_0/loss_prog_batch/train", "fold_0/loss_prog_batch/val",
             "fold_0/val/avg_precision", "fold_0/val/roc_auc",
             "fold_0/learning_rate")
 
+# phase 9: data parallelism over NCCL (one rank), a DCP checkpoint, the
+# post-downscale augmentation and a dp×tp = 1×2 grid. The float32 DP run
+# (phase 5b's config: batch 2, no dropout) takes PAR_STEPS steps; its
+# first PAR_CHECK_STEPS are held against TrainRuntime's (phase 5b's bars),
+# all of them against the grid's (__graft_entry__.py's dp×tp bars)
+PAR_STEPS = 4
+PAR_CHECK_STEPS = 2
+# Adam moves a parameter by at most ~lr (1e-5 in these steps) in the sign
+# of its gradient: two paths a step apart differ by at most two such moves
+PAR_PARAM_ATOL = 2 * 1.0014 * 1e-5 + 1e-6
+# float64 gradients of the two paths, per tensor against its largest
+# entry; both take the loss on float32 logits (an ulp, 6e-8 relative)
+PAR_MOMENT_RTOL = 1e-6
+PAR_BF16_STEPS = 2
+PAR_SEED = 500
+PAR_TP = 2
+PAR_TP_TIMEOUT_S = 600
+# 9a's backend; 9b's ranks share the one card, which NCCL refuses: gloo,
+# which all-reduces CUDA tensors
+DP_BACKEND = "nccl"
+TP_BACKEND = "gloo"
+TP_DEVICE = "cuda:0"
+GRID_LOSS = dict(rtol=5e-3, atol=1e-5)
+GRID_PARAM = dict(rtol=2e-2, atol=2e-3)
+
 # phase 7: fold evaluation over phase 6's experiment directory (fold 0:
 # trainer B's epoch-1 checkpoint; fold 1: trainer A's epoch-0 one, a hard
 # link): 20 test knees of their own, batch 16 (a full batch and a padded
@@ -503,7 +568,7 @@ def card_line() -> str:
     return proc.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, iters: int) -> float:
+def time_ms(fn, iters: int, sleep_cycles: int = SLEEP_CYCLES) -> float:
     """Device ms of one call: CUDA events around ``iters`` calls queued
     behind a device-side sleep, so the card runs them back to back and the
     host's launch cost does not show."""
@@ -512,7 +577,7 @@ def time_ms(fn, iters: int) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(SLEEP_CYCLES)
+    torch.cuda._sleep(sleep_cycles)
     start.record()
     for _ in range(iters):
         fn()
@@ -1247,12 +1312,13 @@ def phase_int8_conv() -> dict:
         wb = w.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
         w_packed = ic.pack_int8_conv_weight(w, groups)   # as the FEs hold it
         t_k = time_ms(lambda: ic.int8_conv2d(x, w, sc, stride, pad, groups,
-                                             w_packed=w_packed, **kw), 20)
+                                             w_packed=w_packed, **kw), 20,
+                      K5_SLEEP_CYCLES)
         t_p = time_ms(lambda: ic.int8_conv2d_fused_plain(
-            x, w, sc, stride, pad, groups, **kw), 2)
-        t_l = time_ms(lambda: torch._int_mm(a, b.t()), 20)
+            x, w, sc, stride, pad, groups, **kw), 2, K5_SLEEP_CYCLES)
+        t_l = time_ms(lambda: torch._int_mm(a, b.t()), 20, K5_SLEEP_CYCLES)
         t_b = time_ms(lambda: F.conv2d(xb, wb, None, stride, pad, 1, groups),
-                      20)
+                      20, K5_SLEEP_CYCLES)
         bound, by = int8_conv_bound_ms(x, w, out, kw, stride, pad)
         log(f"[int8_conv] {label:30s} x{xshape} Cout {cout} k{k} s{stride} "
             f"g{groups} {variant} ({reps}/request): kernel {t_k:.4f} ms  "
@@ -1328,14 +1394,14 @@ def synth_state_dict():
     return from_jax_variables(MODEL_CFG["name"], tree)
 
 
-def raw_inputs(batch: int = BATCH):
+def raw_inputs(batch: int = BATCH, seed: int = 0):
     """Raw inputs at bench.py's sizes and types, ``batch`` knees: uint8 XR and
     DESS, float T2 maps, float clinical values. bench.py's uniform noise
     is dimmed to a tenth in some 100² blocks of each X-ray, a share that
     grows from knee to knee, and scaled by an amplitude drawn for each MRI
     slice, so that knees and slices differ in their tokens (per-knee
     min-max scaling would erase one amplitude per knee)."""
-    rng = np.random.RandomState(0)
+    rng = np.random.RandomState(seed)
     dark = (rng.rand(batch, 1, 7, 1, 7, 1)
             < np.linspace(0.1, 0.9, batch)[:, None, None, None, None, None])
     xr = (rng.randint(0, 256, (batch, 1, 7, 100, 7, 100)).astype(np.float32)
@@ -1351,9 +1417,9 @@ def raw_inputs(batch: int = BATCH):
             rng.rand(batch, 1, 9).astype(np.float32))
 
 
-def labels(batch: int) -> np.ndarray:
+def labels(batch: int, seed: int = 1) -> np.ndarray:
     """Progression targets in {0, 1}, from their own numpy seed."""
-    return np.random.RandomState(1).randint(0, 2, batch).astype(np.int64)
+    return np.random.RandomState(seed).randint(0, 2, batch).astype(np.int64)
 
 
 def capture(predictor, xs) -> dict:
@@ -1442,6 +1508,7 @@ KERNEL_CATEGORIES = (
     ("attention backward (flash_bwd)", ("flash_bwd_dq", "flash_bwd_dkv")),
     ("attention (flash_fwd)", ("flash_fwd",)),
     ("copies", ("memcpy", "memset")),
+    ("collectives (NCCL)", ("nccl",)),
     ("resize", ("upsample",)),
     ("rotation (grid_sample)", ("grid_sampler", "affine_grid")),
     ("optimizer (Adam)", ("adam", "multi_tensor_apply")),
@@ -1834,6 +1901,14 @@ def launch_counts() -> tuple:
     fa = flash_module()
     return (fa.flash_attention.launches, fa.flash_attention_bwd.launches_dq,
             fa.flash_attention_bwd.launches_dkv)
+
+
+def kernel_launches() -> dict:
+    """K1-K5's launch counts since the last reset."""
+    k1, k2, k3 = launch_counts()
+    return {"K1": k1, "K2": k2, "K3": k3,
+            "K4": stem_module().fused_bn_relu_pool.launches,
+            "K5": int8_module().int8_conv2d.launches}
 
 
 def reset_launch_counts() -> None:
@@ -2232,12 +2307,7 @@ def phase_fit(card: str, train_ms: float, root: str) -> tuple:
     with kernel_inputs() as seen:
         summary = resumed.fit()
     torch.cuda.synchronize()
-    fa = flash_module()
-    counts = {"K1": fa.flash_attention.launches,
-              "K2": fa.flash_attention_bwd.launches_dq,
-              "K3": fa.flash_attention_bwd.launches_dkv,
-              "K4": stem_module().fused_bn_relu_pool.launches,
-              "K5": int8_module().int8_conv2d.launches}
+    counts = kernel_launches()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     tm = resumed.timing
     log(f"[fit] trainer B: epoch 1 ({tm['train_steps']} steps, "
@@ -2956,6 +3026,539 @@ def phase_prep(card: str) -> dict:
     return out
 
 
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def par_config(dropout: bool) -> dict:
+    """The flagship's config; without dropout for the runs held against
+    each other (phase 5b's)."""
+    cfg = copy.deepcopy(MODEL_CFG)
+    if not dropout:
+        cfg["fe"]["clin"]["dropout"] = 0.0
+        cfg["agg"].update(emb_dropout=0.0, mlp_dropout=0.0)
+    return cfg
+
+
+def par_runtime(sd: dict, model_cfg: dict, dtype, training=None, **kw):
+    from oaprogressionmmf_torch.train.trainer import TrainRuntime
+    return TrainRuntime({"model": model_cfg,
+                         "training": dict(TRAIN_CFG, **(training or {}))},
+                        MODALS, model_cfg["downscale"], STEPS_PER_EPOCH,
+                        state_dict=sd, dtype=dtype, **kw)
+
+
+@functools.lru_cache(maxsize=None)
+def par_batch(batch: int, k: int) -> tuple:
+    """Step k's knees of phase 9's float32 runs: raw inputs and labels of
+    their own seeds, so that each step sees other knees."""
+    return raw_inputs(batch, seed=PAR_SEED + k), labels(batch, seed=1 + k)
+
+
+def par_steps(rt, data, steps: int, first: int = 0) -> tuple:
+    """``steps`` training steps, step k on the knees ``data(k)`` (raw
+    inputs, labels), its augmentation drawn from seed PAR_SEED + k and its
+    dropout from seed k; returns the losses and each step's synchronized
+    ms."""
+    losses, ms = [], []
+    for k in range(first, first + steps):
+        xs, ys = data(k)      # this rank's knees
+        batch = len(ys)
+        gen = torch.Generator(device=rt.device).manual_seed(PAR_SEED + k)
+        torch.manual_seed(k)
+        t = time.perf_counter()
+        loss, _ = rt.train_step(xs, ys, draws=rt.sample_draws(gen, batch))
+        losses.append(loss.item())
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+    return losses, ms
+
+
+def f64_moments(sd: dict, cfg: dict, data, dp=None, tp=None) -> dict:
+    """Adam's first moment (0.1 of the gradient) after one step of the
+    float64 model with the plain attention, on the host; with ``tp`` the
+    grid's moments made whole (``parallel.tp.unshard``)."""
+    from oaprogressionmmf_torch.models.feat import Attention
+    from oaprogressionmmf_torch.parallel.tp import unshard
+    rt = par_runtime(sd, cfg, torch.float32, dp=dp, tp=tp)
+    for m in rt.model.modules():
+        if isinstance(m, Attention):
+            m.attn_impl = "reference"
+    rt.model.double()
+    par_steps(rt, data, 1)
+    out = {n: rt.optimizer.state[p]["exp_avg"]
+           for n, p in rt.model.named_parameters()}
+    if tp is not None:
+        out = unshard(out, tp)
+    out = {n: m.cpu() for n, m in out.items()}
+    del rt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def par_validate(rt, xs) -> torch.Tensor:
+    """One validation batch as ``fit`` runs it: eval mode, inference
+    mode, the runtime's autocast; K1 12 and K4 3 launches."""
+    from oaprogressionmmf_torch.train.trainer import make_preprocess_fn
+    pre = make_preprocess_fn(MODALS, MODEL_CFG["downscale"], train=False)
+    autocast = (torch.autocast(rt.device.type, dtype=rt.dtype)
+                if rt.dtype != torch.float32 else contextlib.nullcontext())
+    rt.model.eval()
+    try:
+        with torch.inference_mode(), autocast:
+            out = rt.model(*pre(rt.to_device(xs)))["main"].float()
+    finally:
+        rt.model.train()
+    if not torch.isfinite(out).all():
+        raise SystemExit("a non-finite validation logit")
+    return out
+
+
+def want_launches(steps: int, validations: int = 1) -> dict:
+    return {"K1": 12 * (steps + validations), "K2": 12 * steps,
+            "K3": 12 * steps, "K4": 3 * validations, "K5": 0}
+
+
+def tp_worker(path_plan: str, rank: int) -> int:
+    """One rank of phase 9b's dp×tp = 1×2 grid (``python3 chip_smoke.py
+    tp-worker PLAN RANK``): gloo on the one card, phase 9a's float32 DP
+    run's steps, then a validation forward; rank 0 saves the unsharded
+    parameters. Then one float64 step of the grid with the plain
+    attention: rank 0 holds its unsharded Adam first moment against 9a's
+    float64 DP step's (saved at ``plan["m64"]``) and saves each tensor's
+    max|dm|/max|m|."""
+    import torch.distributed as dist
+
+    from oaprogressionmmf_torch.parallel.mesh import DataParallel
+    from oaprogressionmmf_torch.parallel.tp import (create_grid,
+                                                    full_state_dict)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    plan = json.loads(Path(path_plan).read_text())
+    # not initialize_distributed: it takes NCCL on the card, which refuses
+    # two ranks on one device
+    torch.cuda.set_device(TP_DEVICE)
+    dist.init_process_group(TP_BACKEND, init_method=f"tcp://{plan['addr']}",
+                            world_size=PAR_TP, rank=rank)
+    dp_group, tp_group = create_grid(1, PAR_TP)
+    sd = torch.load(plan["sd"], map_location="cpu", weights_only=True,
+                    mmap=True)
+    from oaprogressionmmf_torch.models.feat import Attention
+    rt = par_runtime(sd, par_config(False), torch.float32,
+                     dp=DataParallel(dp_group), tp=tp_group)
+    heads = sorted({m.heads for m in rt.model.modules()
+                    if isinstance(m, Attention)})
+    data = functools.partial(par_batch, CHECK_BATCH)
+    reset_launch_counts()
+    losses, ms = par_steps(rt, data, PAR_STEPS)
+    par_validate(rt, data(0)[0])
+    torch.cuda.synchronize()
+    out = {"losses": losses, "ms": ms, "launches": kernel_launches(),
+           "heads": heads, "rank": dist.get_rank(tp_group)}
+    full = full_state_dict(rt.model, tp_group)
+    if rank == 0:
+        names = [n for n, _ in rt.model.named_parameters()]
+        out["params"] = {n: full[n].cpu() for n in names}
+    del rt, full
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    got = f64_moments(sd, par_config(False), data,
+                      dp=DataParallel(dp_group), tp=tp_group)
+    out["f64_s"] = time.perf_counter() - t0
+    if rank == 0:
+        want = torch.load(plan["m64"], map_location="cpu", weights_only=True,
+                          mmap=True)
+        if set(got) != set(want):
+            raise SystemExit(f"grid moments: names differ, e.g. "
+                             f"{sorted(set(got) ^ set(want))[:4]}")
+        out["moment_ratio"] = {
+            n: ((got[n] - m).abs().max()
+                / m.abs().max().clamp_min(1e-300)).item()
+            for n, m in want.items()}
+    torch.save(out, f"{plan['out']}.{rank}")
+    dist.destroy_process_group()
+    return 0
+
+
+def worker_command(mode: str, path_plan: str, rank: int) -> list:
+    return [sys.executable, str(REPO / "chip_smoke.py"), mode, path_plan,
+            str(rank)]
+
+
+def run_workers(mode: str, plan: dict, tmp: str, n: int) -> tuple:
+    """Start ``n`` processes of ``python3 chip_smoke.py MODE PLAN RANK``,
+    wait for them, and return each rank's saved result and the wall
+    seconds; a rank that fails stops the run with its output."""
+    Path(f"{tmp}/plan.json").write_text(json.dumps(plan))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        worker_command(mode, f"{tmp}/plan.json", r), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(n)]
+    try:
+        logs = [p.communicate(timeout=PAR_TP_TIMEOUT_S)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    for r, (p, text) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise SystemExit(f"{mode} rank {r} exited {p.returncode}:\n"
+                             f"{text[-6000:]}")
+    return ([torch.load(f"{plan['out']}.{r}", weights_only=False)
+             for r in range(n)], time.perf_counter() - t0)
+
+
+def phase_parallel(card: str, sd: dict, train_ms: float) -> dict:
+    """Phase 9: data parallelism over NCCL (a single-rank group), a DCP
+    checkpoint of its state, the post-downscale augmentation, and a 1×2
+    dp×tp grid in two processes on the card (gloo)."""
+    import torch.distributed as dist
+
+    from oaprogressionmmf_torch.parallel.dcn import initialize_distributed
+    from oaprogressionmmf_torch.parallel.mesh import DataParallel
+    from oaprogressionmmf_torch.utils import checkpoint
+    t_phase = time.perf_counter()
+    out: dict = {"launches": {}}
+    torch.backends.cudnn.deterministic = True
+    shard = initialize_distributed({"distributed": {
+        "enable": True, "coordinator_address": f"127.0.0.1:{free_port()}",
+        "num_processes": 1, "process_id": 0}})
+    if shard != (0, 1) or dist.get_backend() != DP_BACKEND:
+        raise SystemExit(f"process group {shard}, {dist.get_backend()}")
+    dp = DataParallel()
+    cfg = par_config(False)
+    data = functools.partial(par_batch, CHECK_BATCH)
+
+    # 9a: the DP step against the plain step. Each float32 step starts
+    # from the same state on the same draws: the losses, and each
+    # parameter within Adam's bound of the step (a gradient near 0 may
+    # take either sign, as in tests/test_torch_port_train_step.py). The
+    # gradients (Adam's first moment) are held in float64 with the plain
+    # attention (the flash kernels take float32 and bf16): in float32 a
+    # batch-2 step's gradients are no stable function of the inputs, and
+    # BatchNorm's sums in another order part the two paths by ~0.5% in
+    # the stems (measured on the CPU; in float64 they agree to 5e-14)
+    ref = par_runtime(sd, cfg, torch.float32)
+    rt = par_runtime(sd, cfg, torch.float32, dp=dp)
+    worst_name, worst, failed, d_loss = "", 0.0, [], 0.0
+    check = []
+    for k in range(PAR_CHECK_STEPS):
+        if k:
+            rt.model.load_state_dict(ref.model.state_dict())
+            rt.load_optimizer_state(ref.optimizer_state(), ref.step)
+        (want_loss,), _ = par_steps(ref, data, 1, first=k)
+        (got_loss,), _ = par_steps(rt, data, 1, first=k)
+        check.append((got_loss, want_loss))
+        d_loss = max(d_loss, abs(got_loss - want_loss) / abs(want_loss))
+        for (n, p), q in zip(rt.model.named_parameters(),
+                             ref.model.parameters()):
+            err = (p - q).abs().max().item()
+            if err > worst:
+                worst_name, worst = n, err
+            if err > PAR_PARAM_ATOL:
+                failed.append((k, n))
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    moments = [f64_moments(sd, cfg, data, dp=d) for d in (None, dp)]
+    worst_m_name, worst_m = "", 0.0
+    for n, m_r in moments[0].items():
+        ratio = ((moments[1][n] - m_r).abs().max()
+                 / m_r.abs().max().clamp_min(1e-300)).item()
+        if ratio > worst_m:
+            worst_m_name, worst_m = n, ratio
+        if ratio > PAR_MOMENT_RTOL:
+            failed.append(("float64", n))
+    # the DP step's float64 moments: 9b's grid is held against them
+    dp_moments = moments[1]
+    del moments
+    # the free DP run from the initial state: PAR_STEPS steps, then a
+    # validation batch, launches counted
+    rt.model.load_state_dict(sd)
+    rt.optimizer.state.clear()
+    rt.step = 0
+    reset_launch_counts()
+    losses, _ = par_steps(rt, data, PAR_STEPS)
+    par_validate(rt, data(0)[0])
+    torch.cuda.synchronize()
+    out["launches"]["dp_float32"] = counts = kernel_launches()
+    log(f"[parallel] 9a {DP_BACKEND}, one rank: float32 batch "
+        f"{CHECK_BATCH}, no dropout, {PAR_CHECK_STEPS} DP steps against "
+        f"TrainRuntime's, each from the same state on the same draws: "
+        f"losses (DP, plain) {check} (largest rel {d_loss:.2e}, tol "
+        f"{LOSS_RTOL}); largest |dp| {worst:.3e} ({worst_name}; tol "
+        f"{PAR_PARAM_ATOL:.3e}); one float64 step (plain attention): "
+        f"largest max|dm|/max|m| {worst_m:.3e} ({worst_m_name}; tol "
+        f"{PAR_MOMENT_RTOL}); then {PAR_STEPS} DP steps from the start, "
+        f"losses {losses}, and a validation batch launched {counts} (want "
+        f"{want_launches(PAR_STEPS)}) "
+        f"{'ok' if not failed and d_loss <= LOSS_RTOL else 'FAIL'}")
+    if failed or d_loss > LOSS_RTOL or counts != want_launches(PAR_STEPS):
+        raise SystemExit(f"DP against TrainRuntime: loss rel {d_loss:.2e}, "
+                         f"tensors {failed[:8]}, launches {counts}")
+    out["dp_losses"] = losses
+    dp_params = {n: p.detach().cpu() for n, p in rt.model.named_parameters()}
+
+    # 9d: its state as a DCP checkpoint (ckpt_backend: orbax), restored
+    with tempfile.TemporaryDirectory(prefix="dcp_") as root:
+        handler = checkpoint.make_checkpoint_handler(root, backend="orbax")
+        t0 = time.perf_counter()
+        path = handler.save_new_ckpt(
+            checkpoint.runtime_payload(MODEL_CFG["name"], rt),
+            MODEL_CFG["name"], 0, 0)
+        save_s = time.perf_counter() - t0
+        nbytes = checkpoint.ckpt_bytes(path)
+        other = par_runtime(sd, par_config(True), torch.bfloat16, dp=dp)
+        t0 = time.perf_counter()
+        checkpoint.load_runtime_payload(MODEL_CFG["name"], other,
+                                        checkpoint.load_ckpt(path))
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    want, got = fit_state(SimpleNamespace(runtime=rt)), \
+        fit_state(SimpleNamespace(runtime=other))
+    differ = [n for n, t in want.items() if not torch.equal(t, got[n])]
+    log(f"[parallel] 9d DCP checkpoint of 9a's runtime ({path.name}): "
+        f"{nbytes} bytes written in {save_s:.2f} s, read and restored in "
+        f"{load_s:.2f} s into a bf16 runtime; {len(want)} tensors, "
+        f"{len(differ)} differ (torch.equal), step {other.step}  [{card}]")
+    if differ or set(want) != set(got) or other.step != rt.step:
+        raise SystemExit(f"DCP restore: differ {differ[:8]}")
+    out["dcp"] = {"bytes": nbytes, "save_s": round(save_s, 3),
+                  "load_s": round(load_s, 3)}
+    del rt, want, got
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 9a: bf16 DP steps at the training batch, timed
+    xs8, ys8 = raw_inputs(TRAIN_BATCH), labels(TRAIN_BATCH)
+
+    def data8(k):
+        return xs8, ys8
+
+    par_steps(other, data8, 1)
+    reset_launch_counts()
+    losses, ms = par_steps(other, data8, PAR_BF16_STEPS, first=1)
+    par_validate(other, xs8)
+    torch.cuda.synchronize()
+    out["launches"]["dp_bf16"] = counts = kernel_launches()
+    out["dp_bf16_ms"] = ms
+    log(f"[parallel] 9a {DP_BACKEND}, one rank: bf16 batch {TRAIN_BATCH} "
+        f"DP steps "
+        f"{[round(v, 2) for v in ms]} ms (synchronized; phase 5's bare "
+        f"step {train_ms:.2f}), losses {losses}; with a validation batch "
+        f"launched {counts} (want {want_launches(PAR_BF16_STEPS)})  "
+        f"[{card}]")
+    if counts != want_launches(PAR_BF16_STEPS) \
+            or not all(np.isfinite(losses)):
+        raise SystemExit(f"bf16 DP: launches {counts}, losses {losses}")
+    device_breakdown(lambda: par_steps(other, data8, 1, first=3),
+                     float(np.mean(ms)), what="DP training step")
+    del other
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 9c: training.augment_full_res=false, one bf16 step at batch 8
+    rt = par_runtime(sd, MODEL_CFG, torch.bfloat16,
+                     training={"augment_full_res": False})
+    warm, warm_ms = par_steps(rt, data8, 1)
+    reset_launch_counts()
+    losses, ms = par_steps(rt, data8, 1, first=1)
+    par_validate(rt, xs8)
+    torch.cuda.synchronize()
+    out["launches"]["post_downscale"] = counts = kernel_launches()
+    out["post_downscale_ms"] = ms
+    log(f"[parallel] 9c augment_full_res=false, bf16 batch {TRAIN_BATCH}: "
+        f"a step {ms[0]:.2f} ms after a warm-up step of {warm_ms[0]:.2f} "
+        f"(synchronized) against phase 5's default step {train_ms:.2f}; "
+        f"losses {warm + losses}; with a validation batch launched "
+        f"{counts} (want {want_launches(1)})  [{card}]")
+    if counts != want_launches(1) or not all(np.isfinite(warm + losses)):
+        raise SystemExit(f"post-downscale step: launches {counts}")
+    del rt
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.destroy_process_group()
+
+    # 9b: dp×tp = 1×2, two processes on the card over gloo
+    with tempfile.TemporaryDirectory(prefix="tp_") as tmp:
+        torch.save(sd, f"{tmp}/sd.pt")
+        torch.save(dp_moments, f"{tmp}/m64.pt")
+        del dp_moments
+        plan = {"addr": f"127.0.0.1:{free_port()}", "sd": f"{tmp}/sd.pt",
+                "m64": f"{tmp}/m64.pt", "out": f"{tmp}/out"}
+        ranks, wall_s = run_workers("tp-worker", plan, tmp, PAR_TP)
+    # the grid's gradients: one float64 step's Adam first moment against
+    # DP's, per tensor against its largest entry (9a's bar)
+    ratios = ranks[0]["moment_ratio"]
+    worst_m_name = max(ratios, key=ratios.get)
+    worst_m = ratios[worst_m_name]
+    failed_m = [n for n, r in ratios.items() if not r <= PAR_MOMENT_RTOL]
+    log(f"[parallel] 9b dp×tp = 1×{PAR_TP}: one float64 step (plain "
+        f"attention) against 9a's float64 DP step: largest max|dm|/max|m| "
+        f"{worst_m:.3e} ({worst_m_name}; tol {PAR_MOMENT_RTOL}) over "
+        f"{len(ratios)} tensors; {max(r['f64_s'] for r in ranks):.1f} s "
+        f"{'ok' if not failed_m else 'FAIL'}")
+    if failed_m:
+        raise SystemExit(f"dp×tp gradients against DP: {failed_m[:8]}")
+    worst_name, worst, failed = "", 0.0, []
+    rtol, atol = GRID_PARAM["rtol"], GRID_PARAM["atol"]
+    for n, want_p in dp_params.items():
+        got_p = ranks[0]["params"][n]
+        excess = ((got_p - want_p).abs() - rtol * want_p.abs()).max().item()
+        if excess > worst:
+            worst_name, worst = n, excess
+        if excess > atol:
+            failed.append(n)
+    loss_ok = all(np.allclose(r["losses"], out["dp_losses"], **GRID_LOSS)
+                  for r in ranks)
+    out["launches"]["tp"] = [r["launches"] for r in ranks]
+    out["tp_ms"] = [r["ms"] for r in ranks]
+    log(f"[parallel] 9b dp×tp = 1×{PAR_TP}, gloo on the card: "
+        f"{PAR_STEPS} float32 steps, local heads {ranks[0]['heads']}, "
+        f"losses {[r['losses'] for r in ranks]} against 9a's DP "
+        f"{out['dp_losses']} ({GRID_LOSS}); params: largest "
+        f"|Δ| − rtol·|p| {worst:.3e} ({worst_name}; atol {atol}, rtol "
+        f"{rtol}); ms per step {out['tp_ms']}; launches per rank "
+        f"{out['launches']['tp']} (want {want_launches(PAR_STEPS)}); "
+        f"{wall_s:.1f} s with the processes' start  [{card}]")
+    if failed or not loss_ok or any(
+            r["launches"] != want_launches(PAR_STEPS)
+            or r["heads"] != [MODEL_CFG["agg"]["heads"] // PAR_TP]
+            for r in ranks):
+        raise SystemExit(f"dp×tp against DP: params {failed[:8]}, losses "
+                         f"ok {loss_ok}")
+    out["seconds"] = round(time.perf_counter() - t_phase, 1)
+    log(f"[parallel] phase 9 {out['seconds']} s  [{card}]")
+    return out
+
+
+def dp_worker(path_plan: str, rank: int) -> int:
+    """One rank of ``dp_cards`` (``python3 chip_smoke.py dp-worker PLAN
+    RANK``): NCCL on ``cuda:RANK``; one float32 DP step on this rank's 2
+    knees of the global batch, then bf16 DP steps at batch 8, timed."""
+    import torch.distributed as dist
+
+    from oaprogressionmmf_torch.parallel.dcn import initialize_distributed
+    from oaprogressionmmf_torch.parallel.mesh import DataParallel
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    plan = json.loads(Path(path_plan).read_text())
+    world = plan["world"]
+    initialize_distributed({"distributed": {
+        "enable": True, "coordinator_address": plan["addr"],
+        "num_processes": world, "process_id": rank}})
+    dp = DataParallel()
+    sd = torch.load(plan["sd"], map_location="cpu", weights_only=True,
+                    mmap=True)
+    rows = dp.rows(CHECK_BATCH)
+
+    def data(k):
+        xs, ys = par_batch(CHECK_BATCH * world, k)
+        return tuple(x[rows] for x in xs), ys[rows]
+
+    rt = par_runtime(sd, par_config(False), torch.float32, dp=dp)
+    reset_launch_counts()
+    losses, _ = par_steps(rt, data, 1)
+    out = {"losses": losses, "launches": kernel_launches(),
+           "device": f"cuda:{torch.cuda.current_device()}",
+           "backend": dist.get_backend()}
+    if rank == 0:
+        out["params"] = {n: p.detach().cpu()
+                         for n, p in rt.model.named_parameters()}
+    del rt
+    gc.collect()
+    torch.cuda.empty_cache()
+    rt = par_runtime(sd, MODEL_CFG, torch.bfloat16, dp=dp)
+    xs8, ys8 = raw_inputs(TRAIN_BATCH, seed=rank), labels(TRAIN_BATCH)
+
+    def data8(k):
+        return xs8, ys8
+
+    par_steps(rt, data8, 1)
+    reset_launch_counts()
+    out["bf16_losses"], out["bf16_ms"] = par_steps(rt, data8,
+                                                   PAR_BF16_STEPS, first=1)
+    out["bf16_launches"] = kernel_launches()
+    torch.save(out, f"{plan['out']}.{rank}")
+    dist.destroy_process_group()
+    return 0
+
+
+def dp_cards(n: int) -> int:
+    """Data parallelism over ``n`` cards, one process each over NCCL
+    (``python3 chip_smoke.py dp-cards 4`` on a machine with 4 cards): the
+    first float32 step of the global batch (2 knees a card, no dropout)
+    against ``TrainRuntime``'s one-process step on all of it (loss 1e-5,
+    each parameter within Adam's per-step bound), K1-K3 launched on every
+    rank, then bf16 DP steps at batch 8 a card timed against the
+    one-process bf16 step at batch 8."""
+    if torch.cuda.device_count() < n:
+        raise SystemExit(f"dp-cards {n}: {torch.cuda.device_count()} cards")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    card = card_line()
+    log(card)
+    phase_build()
+    sd = synth_state_dict()
+    with tempfile.TemporaryDirectory(prefix="dp_") as tmp:
+        torch.save(sd, f"{tmp}/sd.pt")
+        plan = {"addr": f"127.0.0.1:{free_port()}", "sd": f"{tmp}/sd.pt",
+                "out": f"{tmp}/out", "world": n}
+        ranks, wall_s = run_workers("dp-worker", plan, tmp, n)
+    rt = par_runtime(sd, par_config(False), torch.float32)
+    (want,), _ = par_steps(rt, functools.partial(par_batch,
+                                                 CHECK_BATCH * n), 1)
+    worst_name, worst = "", 0.0
+    for name, p in rt.model.named_parameters():
+        err = (p.detach().cpu() - ranks[0]["params"][name]).abs().max().item()
+        if err > worst:
+            worst_name, worst = name, err
+    del rt
+    gc.collect()
+    torch.cuda.empty_cache()
+    rt = par_runtime(sd, MODEL_CFG, torch.bfloat16)
+    xs8, ys8 = raw_inputs(TRAIN_BATCH), labels(TRAIN_BATCH)
+    par_steps(rt, lambda k: (xs8, ys8), 1)
+    _, plain_ms = par_steps(rt, lambda k: (xs8, ys8), PAR_BF16_STEPS, first=1)
+    d_loss = max(abs(r["losses"][0] - want) / abs(want) for r in ranks)
+    want_f32 = want_launches(1, 0)
+    want_bf16 = want_launches(PAR_BF16_STEPS, 0)
+    ok = (d_loss <= LOSS_RTOL and worst <= PAR_PARAM_ATOL
+          and all(r["launches"] == want_f32
+                  and r["bf16_launches"] == want_bf16 for r in ranks)
+          and [r["device"] for r in ranks] == [f"cuda:{i}" for i in range(n)]
+          and {r["backend"] for r in ranks} == {"nccl"})
+    log(f"[dp-cards] {n} cards over NCCL, one process each "
+        f"({[r['device'] for r in ranks]}): the float32 step of {n} × "
+        f"{CHECK_BATCH} knees, losses {[r['losses'][0] for r in ranks]} "
+        f"against one process's {want} (largest rel {d_loss:.2e}, tol "
+        f"{LOSS_RTOL}); largest |dp| {worst:.3e} ({worst_name}; tol "
+        f"{PAR_PARAM_ATOL:.3e}); launches {[r['launches'] for r in ranks]}; "
+        f"bf16 DP steps at batch {TRAIN_BATCH} a card (global "
+        f"{TRAIN_BATCH * n}) {[r['bf16_ms'] for r in ranks]} ms against "
+        f"one process's batch-{TRAIN_BATCH} step {plain_ms} ms; "
+        f"{wall_s:.1f} s with the processes' start "
+        f"{'ok' if ok else 'FAIL'}  [{card}]")
+    if not ok:
+        raise SystemExit("dp-cards: DP over the cards disagrees")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def mark(phase: str) -> None:
+    log(f"[time] phase {phase} ends at {time.perf_counter() - T_START:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2968,10 +3571,15 @@ def main() -> int:
     card = card_line()
     log(card)
     phase_build()
+    mark("build")
     flash = phase_flash()
+    mark("3")
     bwd = phase_flash_bwd()
+    mark("3b")
     stem = phase_stem()
+    mark("3c")
     k5 = phase_int8_conv()
+    mark("3d")
 
     t0 = time.perf_counter()
     sd = synth_state_dict()
@@ -2980,31 +3588,49 @@ def main() -> int:
     log(f"[slice] synthesized {n_params} parameters + BN statistics in "
         f"{time.perf_counter() - t0:.1f} s")
     launches, stem_launches, bf16 = phase_slice(card, sd)
+    mark("4")
     gc.collect()                 # the inference predictors are freed
     torch.cuda.empty_cache()
     int8 = phase_int8_serving(card, sd, bf16)
+    mark("4c")
     gc.collect()
     torch.cuda.empty_cache()
     family_ms = phase_families(card)
+    mark("4b")
     gc.collect()
     torch.cuda.empty_cache()
     train_counts, train_ms = phase_train(card, sd)
+    mark("5")
     gc.collect()
     torch.cuda.empty_cache()
     phase_train_check(sd)
-    del sd
+    mark("5b")
     gc.collect()
     torch.cuda.empty_cache()
     # phases 6 and 7 share one experiment directory (two ~4.8 GB
     # checkpoints and a ~1.6 GB bundle)
     with tempfile.TemporaryDirectory(prefix="fit_") as root:
         fit_counts, fit_errs = phase_fit(card, train_ms, root)
+        mark("6")
         eval_counts, eval_errs = phase_eval(card, root)
+        mark("7")
     launches_eval = {k: {run: c[k] for run, c in eval_counts.items()}
                      for k in ("K1", "K4", "K5")}
     gc.collect()
     torch.cuda.empty_cache()
     prep = phase_prep(card)
+    mark("8")
+    gc.collect()
+    parallel = phase_parallel(card, sd, train_ms)
+    mark("9")
+    del sd
+    par = parallel["launches"]
+
+    def par_launches(k: str) -> dict:
+        return {"dp_float32": par["dp_float32"][k],
+                "dp_bf16": par["dp_bf16"][k],
+                "post_downscale": par["post_downscale"][k],
+                "tp_ranks": [c[k] for c in par["tp"]]}
 
     src = "oaprogressionmmf_torch/ops/csrc/"
     kernels = [dict(
@@ -3013,21 +3639,23 @@ def main() -> int:
         replaces="oaprogressionmmf_tpu/ops/flash_attention.py:54",
         launches=launches, launches_train=train_counts[0],
         launches_fit=fit_counts["K1"], launches_eval=launches_eval["K1"],
+        launches_parallel=par_launches("K1"),
         max_abs_err=flash["max_abs_err"], max_abs_err_fit=fit_errs["K1"],
         max_abs_err_eval=eval_errs["K1"],
         ms=flash["ms"],
         plain_ms=flash["plain_ms"], bound_ms=flash["bound_ms"],
         bound_by=flash["bound_by"], library_ms=flash["library_ms"],
         per_n=flash["per_n"], d276=flash["d276"])]
-    for kern, line, count, fit in (
-            ("dq", 155, train_counts[1], fit_counts["K2"]),
-            ("dkv", 193, train_counts[2], fit_counts["K3"])):
+    for kern, line, count, fit, k in (
+            ("dq", 155, train_counts[1], fit_counts["K2"], "K2"),
+            ("dkv", 193, train_counts[2], fit_counts["K3"], "K3")):
         rec = bwd[kern]
         kernels.append(dict(
             name=f"flash_bwd_{kern}", route="cuda", source=src + "flash_bwd.cu",
             design=BWD_DESIGN[kern],
             replaces=f"oaprogressionmmf_tpu/ops/flash_attention.py:{line}",
             launches=count, launches_fit=fit,
+            launches_parallel=par_launches(k),
             max_abs_err=rec["max_abs_err"], ms=rec["ms"],
             plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
             bound_by=rec["bound_by"], library_ms=rec["library_ms"],
@@ -3040,6 +3668,7 @@ def main() -> int:
         launches=stem_launches, launches_per_request=stem_launches / REQUESTS,
         launches_train=0, launches_fit=fit_counts["K4"],
         launches_eval=launches_eval["K4"],
+        launches_parallel=par_launches("K4"),
         max_abs_err=stem["max_abs_err"], max_abs_err_fit=fit_errs["K4"],
         max_abs_err_eval=eval_errs["K4"],
         ms=stem["ms"],
@@ -3057,6 +3686,7 @@ def main() -> int:
         launches=k5_launches, launches_per_request=k5_launches / REQUESTS,
         launches_int8_mode=int8["int8"]["launches"]["K5"],
         launches_fit=fit_counts["K5"], launches_eval=launches_eval["K5"],
+        launches_parallel=par_launches("K5"),
         max_abs_err=k5["max_abs_err"], max_abs_err_eval=eval_errs["K5"],
         ms=k5["ms"], plain_ms=k5["plain_ms"],
         bound_ms=k5["bound_ms"], bound_by=k5["bound_by"],
@@ -3073,6 +3703,7 @@ def main() -> int:
     log(f"[int8] ms per request: {json.dumps(int8)}")
     log(f"[family] ms per request: {json.dumps(family_ms)}")
     log(f"[prep] {json.dumps(prep)}")
+    log(f"[parallel] {json.dumps(parallel)}")
     log(f"[env] chip_smoke.py ran {time.perf_counter() - T_START:.1f} s "
         f"(from after its imports of numpy and torch)")
     print(json.dumps({"kernels": kernels}))
@@ -3084,4 +3715,10 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["tp-worker"]:
+        sys.exit(tp_worker(sys.argv[2], int(sys.argv[3])))
+    if sys.argv[1:2] == ["dp-worker"]:
+        sys.exit(dp_worker(sys.argv[2], int(sys.argv[3])))
+    if sys.argv[1:2] == ["dp-cards"]:
+        sys.exit(dp_cards(int(sys.argv[2])))
     sys.exit(main())

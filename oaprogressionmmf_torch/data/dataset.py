@@ -13,6 +13,7 @@ preprocessing and augmentation run on the device
 from __future__ import annotations
 
 import logging
+from concurrent.futures import ThreadPoolExecutor
 from typing import Sequence
 
 import numpy as np
@@ -173,3 +174,22 @@ class DatasetOAI3d:
         info["target_counts"] = dict(zip(u.tolist(), c.tolist()))
         logger.info(f"Dataset statistics: {sorted(info.items())}")
         return info
+
+    def test_all_readable(self, n_jobs: int = 24, verbose: int = 0) -> list:
+        """Read every sample on ``n_jobs`` threads; returns the indices
+        that failed, in index order (the reference's read sweep; an error
+        is logged, not raised). ``verbose`` is accepted as the JAX package
+        takes it."""
+        def attempt(i):
+            try:
+                self.get(i)
+                return None
+            except Exception as e:  # noqa: BLE001 - the sweep goes on
+                logger.error(f"{type(e)} while reading index {i}")
+                return i
+
+        with ThreadPoolExecutor(max_workers=n_jobs) as pool:
+            failures = [i for i in pool.map(attempt, range(len(self)))
+                        if i is not None]
+        logger.info("Reading completed")
+        return failures

@@ -1,8 +1,9 @@
 """Host input pipeline: weighted sampling and threaded prefetch.
 
 Port of ``oaprogressionmmf_tpu/data/pipeline.py``: counter-based samplers,
-a thread pool that reads and crops samples on the host, batch assembly
-into stacked arrays, and a bounded prefetch queue. Where the JAX loader
+a thread pool that reads and crops samples on the host (or worker
+processes, ``loader_backend: grain``), batch assembly into stacked
+arrays, and a bounded prefetch queue. Where the JAX loader
 puts a batch onto its mesh, this one hands over torch CPU tensors, in
 pinned memory when ``pin_memory`` is set, so that the trainer's
 ``.to(device, non_blocking=True)`` copies run asynchronously.
@@ -175,13 +176,59 @@ class BatchLoader:
             stop.set()
 
 
+class _OrderedView(torch.utils.data.Dataset):
+    """Record k = the dataset's sample ``order[k]`` read for ``epoch`` (its
+    crop and flip draws replayed), as JAX's grain data source."""
+
+    def __init__(self, dataset, order, epoch: int):
+        self._dataset = dataset
+        self._order = np.asarray(order)
+        self._epoch = int(epoch)
+
+    def __len__(self):
+        return len(self._order)
+
+    def __getitem__(self, k):
+        return self._dataset.get(int(self._order[k]), epoch=self._epoch)
+
+
+def _as_list(items: list) -> list:
+    return items
+
+
+class WorkerBatchLoader(BatchLoader):
+    """``loader_backend: grain``: samples read by ``num_workers`` worker
+    processes of ``torch.utils.data.DataLoader`` (0: in this process), in
+    the order of :class:`BatchLoader`, so the batches are the same (the
+    JAX package's GrainBatchLoader, whose worker processes grain starts).
+
+    The workers are spawned for each epoch (``persistent_workers=False``),
+    as grain spawns its own: the dataset must pickle. Each worker reads
+    whole batches' samples; the batch is assembled (padded, pinned) in
+    this process."""
+
+    def epoch(self, epoch_idx: int = 0):
+        order = self._shard_order(self.sampler.epoch_indices(epoch_idx))
+        # never read a sample of a dropped batch
+        order = order[:self.batches_per_epoch() * self.batch_size]
+        workers = int(self.num_workers)
+        loader = torch.utils.data.DataLoader(
+            _OrderedView(self.dataset, order, epoch_idx),
+            batch_size=self.batch_size, shuffle=False, drop_last=False,
+            collate_fn=_as_list, num_workers=workers,
+            persistent_workers=False,
+            prefetch_factor=self.prefetch if workers else None,
+            multiprocessing_context="spawn" if workers else None)
+        for items in loader:
+            yield self._assemble(items)
+
+
 def make_batch_loader(backend: str, *args, **kwargs) -> BatchLoader:
-    """Loader factory (``loader_backend``): ``threads``, the default. The
-    JAX package's ``grain`` backend (worker processes) is not ported."""
+    """Loader factory (``loader_backend``): ``threads`` (the default, a
+    thread pool) or ``grain`` (worker processes,
+    :class:`WorkerBatchLoader`)."""
     if backend == "grain":
-        raise NotImplementedError(
-            "loader_backend=grain is not ported (ROADMAP.md §1 item 1: "
-            "worker processes on torch.utils.data); use 'threads'")
+        return WorkerBatchLoader(*args, **kwargs)
     if backend in ("threads", None, ""):
         return BatchLoader(*args, **kwargs)
     raise ValueError(f"Unknown loader backend: {backend}")

@@ -60,15 +60,18 @@ class Attention(nn.Module):
             raise ValueError(f"attn_impl={attn_impl!r}: use one of "
                              f"{ATTN_IMPLS}")
         self.dim, self.heads, self.attn_impl = dim, heads, attn_impl
+        # the heads' width; tensor parallelism (parallel/tp.py) keeps it
+        # and lowers ``heads`` to the rank's own
+        self.head_dim = dim // heads
         self.to_qkv = QLinear(dim, 3 * dim, bias=False, quant=quant)
         self.to_out = nn.Sequential(QLinear(dim, dim, quant=quant),
                                     nn.Dropout(dropout))
 
     def forward(self, x, return_attn: bool = False, mask=None):
-        b, n, d = x.shape
-        h = self.heads
+        b, n, _ = x.shape
+        h, dh = self.heads, self.head_dim
         scale = self.dim ** -0.5  # full-width scale (reference parity)
-        qkv = self.to_qkv(x).view(b, n, 3, h, d // h).permute(2, 0, 3, 1, 4)
+        qkv = self.to_qkv(x).view(b, n, 3, h, dh).permute(2, 0, 3, 1, 4)
         q, k, v = (t.contiguous() for t in qkv.unbind(0))
 
         if mask is not None:
@@ -82,7 +85,7 @@ class Attention(nn.Module):
         else:
             out, _ = flash_attention(q, k, v, scale)
             attn = None
-        out = out.transpose(1, 2).reshape(b, n, d)
+        out = out.transpose(1, 2).reshape(b, n, h * dh)
         return self.to_out(out), attn
 
 

@@ -4,6 +4,11 @@ Port of ``oaprogressionmmf_tpu/ops/losses.py``: CE over logits with
 optional class weights (torch's weighted mean, sum(w·nll) / sum(w)); focal
 loss −(1 − p_t)^γ · log p_t with the class weight multiplying log p_t, as
 the reference does; mean or sum reduction.
+
+Each loss function carries ``denominator(input, target)``: the
+denominator of its mean (the batch size, or sum(w) for the weighted CE),
+or None for a sum, so that data parallelism takes the mean over the
+global batch (``parallel/mesh.py``).
 """
 
 from __future__ import annotations
@@ -24,6 +29,16 @@ def _weights(class_weight, like):
                            device=like.device)
 
 
+def _count_or_none(reduction: str):
+    """The denominator of a plain mean over the batch; None for a sum."""
+    def denominator(input, target):
+        if reduction != "mean":
+            return None
+        return torch.tensor(float(target.shape[0]), device=input.device)
+
+    return denominator
+
+
 def make_cross_entropy(num_classes: int, class_weight=None,
                        reduction: str = "mean", **_unused):
     """(B, C) logits, (B,) int targets → CE."""
@@ -37,6 +52,15 @@ def make_cross_entropy(num_classes: int, class_weight=None,
             return (w * nll).sum()
         return nll.mean() if reduction == "mean" else nll.sum()
 
+    def denominator(input, target):
+        if reduction != "mean":
+            return None
+        cw = _weights(class_weight, input)
+        if cw is not None:
+            return cw[target.long()].sum()
+        return _count_or_none(reduction)(input, target)
+
+    loss_fn.denominator = denominator
     return loss_fn
 
 
@@ -54,6 +78,7 @@ def make_focal(num_classes: int = 2, gamma: float = 2.0, class_weight=None,
         loss = -((1.0 - torch.exp(logpt)) ** gamma) * logpt
         return loss.mean() if reduction == "mean" else loss.sum()
 
+    loss_fn.denominator = _count_or_none(reduction)
     return loss_fn
 
 
@@ -62,6 +87,8 @@ def make_bce_with_logits(**_unused):
     def loss_fn(input, target):
         return F.binary_cross_entropy_with_logits(input, target.float())
 
+    loss_fn.denominator = lambda input, target: torch.tensor(
+        float(input.numel()), device=input.device)
     return loss_fn
 
 

@@ -117,19 +117,31 @@ def sample_augment_draws(generator: torch.Generator,
         gamma=uniform(*GAMMA_RANGE))
 
 
-def make_augment_fn(modality: str):
-    """Training augmentation of one modality: (images, draws) → float32.
+def make_augment_fn(modality: str, dtype=torch.float32):
+    """Training augmentation of one modality: (images, draws) → ``dtype``.
 
     ``images`` is the host-cropped batch, (B, CH, R, C) for the X-ray or
     (B, CH, R, C, S) for an MRI volume; ``draws`` an :class:`AugmentDraws`
     of B samples. Per sample: unit range over the whole sample, rotation,
     gamma (on ``MODALITY_WITH_GAMMA``), normalization. The JAX package
     folds the unit range into the rotation's epilogue for the TPU; the two
-    agree up to float32 reassociation."""
+    agree up to float32 reassociation.
+
+    ``dtype=torch.bfloat16`` is the JAX package's post-downscale
+    augmentation (``training.augment_full_res=false``, its ``fast``
+    augment): every intermediate (unit range, rotation, gamma) is rounded
+    to bf16 where JAX holds it in bf16, each op computing in float32 on
+    its bf16 operands, and the result is bf16."""
     if modality == "clin":
         return lambda images, draws: images.float()
     mean, std = MODALITY_STATS[modality]
     with_gamma = modality in MODALITY_WITH_GAMMA
+    if dtype == torch.float32:
+        def rnd(t):
+            return t
+    else:
+        def rnd(t):
+            return t.to(dtype).float()
 
     def augment(images: torch.Tensor, draws: AugmentDraws) -> torch.Tensor:
         x = images.float()
@@ -138,19 +150,19 @@ def make_augment_fn(modality: str):
         lo, hi = x.amin(dim=red), x.amax(dim=red)
         a1 = 1.0 / (hi - lo)
         bshape = (b,) + (1,) * (x.dim() - 1)
-        u = x * a1.view(bshape) + (-lo * a1).view(bshape)
+        u = rnd(x * a1.view(bshape) + (-lo * a1).view(bshape))
 
         def per_sample(p, prob):
             return (p.to(x.device) < prob).view(bshape)
 
         rotate = rotate2d if x.dim() == 4 else rotate3d_in_slice
         u = torch.where(per_sample(draws.p_rot, ROT_PROB),
-                        rotate(u, draws.theta.to(x.device)), u)
+                        rnd(rotate(u, draws.theta.to(x.device))), u)
         if with_gamma:
             # the rotation can round to -eps at the border, where pow is NaN
-            inv = (1.0 / draws.gamma.to(x.device)).view(bshape)
+            inv = rnd((1.0 / draws.gamma.to(x.device)).view(bshape))
             u = torch.where(per_sample(draws.p_gamma, GAMMA_PROB),
-                            torch.pow(u.clamp_min(0.0), inv), u)
-        return (u - mean) / std
+                            rnd(torch.pow(u.clamp_min(0.0), inv)), u)
+        return ((u - mean) / std).to(dtype)
 
     return augment

@@ -13,8 +13,7 @@ from __future__ import annotations
 import logging
 import sys
 
-from ..device import resolve_device
-from . import app_config, as_tree, check_runtime
+from . import app_config, as_tree, start_processes
 
 logger = logging.getLogger("eval_prog_fus")
 
@@ -27,8 +26,8 @@ def run(config, device=None, datasets=None) -> dict:
     from ..train.evaluator import ProgressionEvaluator
 
     config = as_tree(config)
-    check_runtime(config)
-    device = resolve_device(device)
+    device, (rank, world) = start_processes(config, device)
+    logger.info(f"Evaluating data shard {rank} of {world}")
     evaluator = ProgressionEvaluator(config, device=device, datasets=datasets)
     regime = config["testing"]["regime"]
     if regime == "eval":

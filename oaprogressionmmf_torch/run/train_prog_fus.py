@@ -4,7 +4,11 @@ Port of ``oaprogressionmmf_tpu/run/train_prog_fus.py`` (the reference's
 koafusion/run/train_prog_fus.py:335-362): overrides in the Hydra grammar
 (``model=xr1_cnn data.target=prog_kl_48 ...``), one
 ``ProgressionTrainer.fit`` per requested fold with its best checkpoint,
-the log also under ``path_logs``.
+the log also under ``path_logs``. Data-parallel over N devices (one
+process each; the batch size is per process)::
+
+    torchrun --nproc-per-node N -m oaprogressionmmf_torch.run.train_prog_fus \
+        runtime.distributed.enable=true ...
 """
 
 from __future__ import annotations
@@ -12,8 +16,7 @@ from __future__ import annotations
 import logging
 import sys
 
-from ..device import resolve_device
-from . import app_config, as_tree, check_runtime
+from . import app_config, as_tree, start_processes
 
 logger = logging.getLogger("train_prog_fus")
 
@@ -26,8 +29,8 @@ def run(config, device=None, datasets=None) -> dict:
     from ..train.trainer import ProgressionTrainer
 
     config = as_tree(config)
-    check_runtime(config)
-    device = resolve_device(device)
+    device, (rank, world) = start_processes(config, device)
+    logger.info(f"Training on data shard {rank} of {world}")
     folds = config["training"]["folds"]
     if int(folds["idx"]) == -1:
         fold_idcs = list(range(int(folds["num"])))

@@ -39,6 +39,7 @@ load without torch.
 from __future__ import annotations
 
 import logging
+import os
 import pickle
 import time
 from pathlib import Path
@@ -111,7 +112,11 @@ class ProgressionEvaluator:
     ``config`` is the config as a plain nested dict (``Config.to_dict()``);
     ``datasets`` as :class:`~.trainer.ProgressionTrainer` takes it. The
     models run on ``device``, the GPU unless ``device="cpu"``, in
-    ``runtime.compute_dtype``."""
+    ``runtime.compute_dtype``.
+
+    Under a process group each process evaluates its shard of the test
+    set; the predictions are gathered in rank order and rank 0 writes the
+    pickles."""
 
     def __init__(self, config: dict, *, device=None, datasets=None):
         self.config = config
@@ -293,7 +298,26 @@ class ProgressionEvaluator:
                 f"p50={np.percentile(per_knee, 50):.6f}s "
                 f"p95={np.percentile(per_knee, 95):.6f}s "
                 f"({len(batch_times)} batches, warmup excluded)")
-        return acc
+        return self._gathered(acc)
+
+    def _gathered(self, acc: dict) -> dict:
+        """Under a process group, every rank's rows in rank order (a scalar
+        such as ``time_per_sample`` is rank 0's)."""
+        dp = self.trainer.dp
+        if dp is None:
+            return acc
+        parts = dp.all_gather_object(acc)
+        return {k: sum((p[k] for p in parts), []) if isinstance(v, list)
+                else v for k, v in acc.items()}
+
+    def _write(self, path: Path, obj) -> None:
+        """Rank 0 writes ``obj`` beside ``path`` and renames it into place,
+        so that another rank checking the cache (``testing.use_cached``)
+        finds the whole pickle or none."""
+        if self.trainer.is_writer:
+            tmp = path.with_name(f".{path.name}.tmp")
+            tmp.write_bytes(pickle.dumps(obj, pickle.HIGHEST_PROTOCOL))
+            os.replace(tmp, path)
 
     def _profile_compute(self, predictor, xs, n_valid: int) -> dict:
         """FLOPs of one batch's forward (``FlopCounterMode``: matmuls and
@@ -349,8 +373,7 @@ class ProgressionEvaluator:
             for fold_idx in self.fold_idcs:
                 raw_foldw[fold_idx] = self.eval_epoch(
                     self._restore_fold(fold_idx))
-            paths_cache["raw_fold-w"].write_bytes(
-                pickle.dumps(raw_foldw, pickle.HIGHEST_PROTOCOL))
+            self._write(paths_cache["raw_fold-w"], raw_foldw)
 
         results = {"raw_foldw": raw_foldw}
 
@@ -358,8 +381,7 @@ class ProgressionEvaluator:
             metrics_foldw = {fold_idx: self._metrics(raw_foldw[fold_idx])
                              for fold_idx in self.fold_idcs
                              if fold_idx in raw_foldw}
-            paths_cache["metrics_fold-w"].write_bytes(
-                pickle.dumps(metrics_foldw, pickle.HIGHEST_PROTOCOL))
+            self._write(paths_cache["metrics_fold-w"], metrics_foldw)
             results["metrics_foldw"] = metrics_foldw
             for fold_idx, m in metrics_foldw.items():
                 logger.info(f"Fold {fold_idx}: roc_auc={m['roc_auc']} "
@@ -370,14 +392,12 @@ class ProgressionEvaluator:
                 raw_ens = pickle.loads(paths_cache["raw_ens"].read_bytes())
             else:
                 raw_ens = self.ensemble_eval_foldw(raw_foldw)
-                paths_cache["raw_ens"].write_bytes(
-                    pickle.dumps(raw_ens, pickle.HIGHEST_PROTOCOL))
+                self._write(paths_cache["raw_ens"], raw_ens)
             results["raw_ens"] = raw_ens
 
             if testing.get("metrics_ensemble", True):
                 metrics_ens = self._metrics(raw_ens)
-                paths_cache["metrics_ens"].write_bytes(
-                    pickle.dumps(metrics_ens, pickle.HIGHEST_PROTOCOL))
+                self._write(paths_cache["metrics_ens"], metrics_ens)
                 results["metrics_ens"] = metrics_ens
                 logger.info(f"Ensemble: roc_auc={metrics_ens['roc_auc']} "
                             f"avg_precision={metrics_ens['avg_precision']}")
@@ -424,7 +444,7 @@ class ProgressionEvaluator:
             acc["modal_names"].extend([list(self.modals)] * n_valid)
             acc["modal_abl_attrs"].extend(attrs.tolist())
             acc["modal_abl_percent"].extend(percent.tolist())
-        return acc
+        return self._gathered(acc)
 
     def ensemble_explain_foldw(self, raw_foldw: dict) -> dict:
         """The folds' attributions joined on exam_knee_id; the mean of
@@ -454,13 +474,11 @@ class ProgressionEvaluator:
             for fold_idx in self.fold_idcs:
                 raw_foldw[fold_idx] = self.explain_epoch(
                     self._restore_fold(fold_idx))
-            paths_cache["raw_fold-w"].write_bytes(
-                pickle.dumps(raw_foldw, pickle.HIGHEST_PROTOCOL))
+            self._write(paths_cache["raw_fold-w"], raw_foldw)
 
         results = {"raw_foldw": raw_foldw}
         if testing.get("ensemble_foldw", True) and raw_foldw:
             raw_ens = self.ensemble_explain_foldw(raw_foldw)
-            paths_cache["raw_ens"].write_bytes(
-                pickle.dumps(raw_ens, pickle.HIGHEST_PROTOCOL))
+            self._write(paths_cache["raw_ens"], raw_ens)
             results["raw_ens"] = raw_ens
         return results

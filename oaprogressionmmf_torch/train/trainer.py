@@ -9,7 +9,11 @@ BatchNorm running statistics updated by the forward),
 :class:`MetricsLogger` and :class:`ProgressionTrainer`, which trains one
 fold: loader threads → train steps → validation epoch → metrics → best
 checkpoint, with ReduceLROnPlateau, the NaN guard and exact resume from
-checkpoints in the JAX package's layout.
+checkpoints in the JAX package's layout. Under a process group (one
+process per device, ``parallel/``) both run data-parallel: each process
+trains on its shard of the global batch with the gradients averaged and
+BatchNorm over the global batch, and rank 0 writes the logs and
+checkpoints.
 """
 
 from __future__ import annotations
@@ -28,14 +32,16 @@ from ..data.pipeline import (SequentialSampler, WeightedSampler,
 from ..device import resolve_device
 from ..models import MODEL_ARITY, dict_models
 from ..ops.losses import dict_losses
-from ..ops.preproc import (MODALITY_STATS, make_augment_fn,
+from ..ops.preproc import (MODALITY_STATS, AugmentDraws, make_augment_fn,
                            sample_augment_draws)
 from ..ops.resize import interpolate
 from ..ops.schedules import ReduceLROnPlateau, make_lr_schedule
-from ..utils.checkpoint import (load_ckpt, load_runtime_payload,
+from ..parallel.mesh import create_group
+from ..parallel.tp import shard_feat_tp
+from ..utils.checkpoint import (ckpt_bytes, load_ckpt, load_runtime_payload,
                                 make_checkpoint_handler, runtime_payload)
 from ..utils.metrics import calc_metrics_v2
-from ..utils.pretrained import check_pretrained_fes
+from ..utils.pretrained import apply_pretrained_fes
 from ..utils.seeding import PRNGChain
 from .state import dict_optimizers, moment_keys, set_lr
 
@@ -45,7 +51,8 @@ logger = logging.getLogger("train")
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
-def make_preprocess_fn(modals, downscale, train: bool, fast: bool = False):
+def make_preprocess_fn(modals, downscale, train: bool, fast: bool = False,
+                       augment_full_res: bool = True):
     """Per-batch device preprocessing for all modalities.
 
     ``fast`` (the JAX package's bf16 TPU downscale for int8 serving) is
@@ -60,8 +67,13 @@ def make_preprocess_fn(modals, downscale, train: bool, fast: bool = False):
 
     Train path, ``preprocess(xs, draws)`` with one
     :class:`~..ops.preproc.AugmentDraws` per modality (None for ``clin``):
-    the augmentation at full resolution, then the downscale — the
-    reference's order, the JAX package's ``augment_full_res=true``."""
+    with ``augment_full_res`` (the default, the reference's order) the
+    augmentation at full resolution in float32, then the downscale;
+    without it (the JAX package's ``augment_full_res=false``) the
+    downscale first, in float32 (``F.interpolate``) rounded to bf16, then
+    the augmentation in bf16 on 4-8× fewer voxels with the same draws. The
+    two are not equal: gamma is not linear, so it does not commute with
+    the downscale."""
     if not train:
         def preprocess(xs: tuple) -> tuple:
             out = []
@@ -81,7 +93,8 @@ def make_preprocess_fn(modals, downscale, train: bool, fast: bool = False):
 
         return preprocess
 
-    augment = [make_augment_fn(m) for m in modals]
+    dtype = torch.float32 if augment_full_res else torch.bfloat16
+    augment = [make_augment_fn(m, dtype=dtype) for m in modals]
 
     def preprocess_train(xs: tuple, draws) -> tuple:
         out = []
@@ -89,9 +102,15 @@ def make_preprocess_fn(modals, downscale, train: bool, fast: bool = False):
             if m == "clin":
                 out.append(x.float())
                 continue
-            x = augment[i](x, draws[i])
-            if downscale:
-                x = interpolate(x, tuple(downscale[i]))
+            if augment_full_res:
+                x = augment[i](x, draws[i])
+                if downscale:
+                    x = interpolate(x, tuple(downscale[i]))
+            else:
+                x = x.float()
+                if downscale:
+                    x = interpolate(x, tuple(downscale[i]))
+                x = augment[i](x.to(dtype), draws[i])
             out.append(x)
         return tuple(out)
 
@@ -125,27 +144,37 @@ class TrainRuntime:
     ``model.fe.remat`` are accepted and ignored. The metric-driven
     ReduceLROnPlateau has no step schedule: the step takes ``self.lr``,
     which :class:`ProgressionTrainer` sets after each validation epoch.
-    Not ported yet: ``training.augment_full_res=false``, the JAX package's
-    post-downscale bf16 augmentation (ROADMAP.md §1 item 7).
+    ``training.augment_full_res`` selects the order of augmentation and
+    downscale (:func:`make_preprocess_fn`).
+
+    Data parallelism: ``dp`` (a :class:`~..parallel.mesh.DataParallel`)
+    makes the step that of the global batch over its group: the model's
+    BatchNorms take the global batch's statistics, the first rank's
+    weights are broadcast, the loss is the global batch's and the
+    gradients are averaged. ``tp`` (a tensor-parallel group) splits the
+    FeaT stacks first (:func:`~..parallel.tp.shard_feat_tp`); in a dp×tp
+    grid ``dp`` is the grid's data group.
 
     Random numbers: augmentation draws come from the generator passed to
-    :meth:`train_step`; dropout draws from the device's default generator,
-    which the caller seeds (``torch.manual_seed``)."""
+    :meth:`train_step` (under ``dp``, the draws of the global batch, of
+    which each rank takes its rows); dropout draws from the device's
+    default generator, which the caller seeds (``torch.manual_seed``)."""
 
     def __init__(self, config: dict, modals, downscale, steps_per_epoch: int,
                  state_dict: dict | None = None, dtype=torch.bfloat16,
-                 device=None):
+                 device=None, dp=None, tp=None):
         self.device = resolve_device(device)
         model_cfg, train_cfg = config["model"], config["training"]
-        if not train_cfg.get("augment_full_res", True):
-            raise NotImplementedError(
-                "training.augment_full_res=false (augmentation after the "
-                "downscale, in bf16) is not ported")
         with torch.device(self.device):
             model = dict_models[model_cfg["name"]](model_cfg)
         if state_dict is not None:
             # copied in: training never writes into the caller's tensors
             model.load_state_dict(state_dict, strict=True)
+        if tp is not None:
+            shard_feat_tp(model, tp)
+        self.dp = dp
+        if dp is not None:
+            dp.replicate(dp.convert_batch_norm(model))
         memory_format = (torch.channels_last if self.device.type == "cuda"
                          else torch.preserve_format)
         self.model = model.to(memory_format=memory_format).train()
@@ -172,8 +201,9 @@ class TrainRuntime:
             self.lr_schedule = make_lr_schedule(
                 sched_cfg["name"], dict(sched_cfg.get("params") or {}),
                 lr_init=self.lr, steps_per_epoch=steps_per_epoch)
-        self.preprocess = make_preprocess_fn(self.modals, downscale,
-                                             train=True)
+        self.preprocess = make_preprocess_fn(
+            self.modals, downscale, train=True,
+            augment_full_res=bool(train_cfg.get("augment_full_res", True)))
         self.step = 0
 
     def optimizer_state(self) -> dict:
@@ -224,10 +254,19 @@ class TrainRuntime:
                      for x in xs)
 
     def sample_draws(self, generator: torch.Generator, batch: int) -> list:
-        """One set of augmentation draws per modality, in modality order."""
-        return [None if m == "clin" else sample_augment_draws(generator,
-                                                              batch)
-                for m in self.modals]
+        """One set of augmentation draws per modality, in modality order.
+        Under ``dp`` the draws of the global batch (``batch × world``), of
+        which this rank takes its rows, as JAX splits one key per sample
+        of the global batch."""
+        world = 1 if self.dp is None else self.dp.world
+        draws = [None if m == "clin" else
+                 sample_augment_draws(generator, batch * world)
+                 for m in self.modals]
+        if self.dp is None:
+            return draws
+        rows = self.dp.rows(batch)
+        return [None if d is None else AugmentDraws(*(t[rows] for t in d))
+                for d in draws]
 
     def train_step(self, xs, ys, generator: torch.Generator | None = None,
                    draws=None):
@@ -236,7 +275,8 @@ class TrainRuntime:
 
         The augmentation draws come from ``generator``, or are given as
         ``draws`` (one :class:`~..ops.preproc.AugmentDraws` per modality).
-        Returns the loss and the float32 logits, both detached."""
+        Returns the loss (under ``dp`` the global batch's) and the float32
+        logits of this rank's rows, both detached."""
         xs = self.to_device(xs)
         ys = torch.as_tensor(ys).to(self.device, non_blocking=True)
         if draws is None:
@@ -249,13 +289,19 @@ class TrainRuntime:
         with autocast:
             out = self.model(*xs)
         logits = (out["main"] if isinstance(out, dict) else out).float()
-        loss = self.loss_fn(logits, ys)
-        loss.backward()
+        if self.dp is None:
+            loss = self.loss_fn(logits, ys)
+            loss.backward()
+        else:
+            loss_rank, loss = self.dp.global_loss(self.loss_fn, logits, ys)
+            loss_rank.backward()
         # parameters the loss does not reach (the per-MRI FeaTs' heads)
         # still take the update, as JAX's zero grads and weight decay do
         for p in self.params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        if self.dp is not None:
+            self.dp.all_reduce_grads(self.params)
         set_lr(self.optimizer, self.lr if self.lr_schedule is None
                else self.lr_schedule(self.step))
         self.optimizer.step()
@@ -268,22 +314,28 @@ class MetricsLogger:
     """JSONL scalar log, ``scalars.jsonl`` in ``path_dir``: one
     ``{"tag", "value", "step"}`` object per line, the JAX package's tags.
     (The JAX package also writes TensorBoard when it is installed; the
-    port does not.)"""
+    port does not.) ``enabled=False`` (the ranks after the first of a
+    process group) writes nothing."""
 
-    def __init__(self, path_dir):
+    def __init__(self, path_dir, enabled: bool = True):
         self.path_dir = Path(path_dir)
-        self.path_dir.mkdir(parents=True, exist_ok=True)
-        self._fh = open(self.path_dir / "scalars.jsonl", "a")
+        self._fh = None
+        if enabled:
+            self.path_dir.mkdir(parents=True, exist_ok=True)
+            self._fh = open(self.path_dir / "scalars.jsonl", "a")
 
     def scalar(self, tag: str, value, step: int):
-        self._fh.write(json.dumps(
-            {"tag": tag, "value": float(value), "step": int(step)}) + "\n")
+        if self._fh is not None:
+            self._fh.write(json.dumps(
+                {"tag": tag, "value": float(value), "step": int(step)})
+                + "\n")
 
     def flush(self):
-        self._fh.flush()
+        if self._fh is not None:
+            self._fh.flush()
 
     def close(self):
-        if not self._fh.closed:
+        if self._fh is not None and not self._fh.closed:
             self._fh.close()
 
 
@@ -306,8 +358,9 @@ class ProgressionTrainer:
     resumed run equals an unbroken one: the augmentation draws of a step
     come from a generator seeded from (``seed_train_val`` + 1000, epoch,
     step, 0), JAX's base seed, and its dropout from the device's default
-    generator seeded from (…, 1) for the step (the caller's generator
-    state is restored after it); the crops from the dataset's (seed,
+    generator seeded from (…, 1) for the step, and the rank under a
+    process group (:meth:`dropout_seed`; the caller's generator state is
+    restored after it); the crops from the dataset's (seed,
     epoch, index) and the order from the sampler's (seed, epoch). The
     initial weights come from torch's initialization under seed 0. The
     bits differ from the JAX package's ``jax.random`` streams.
@@ -315,6 +368,14 @@ class ProgressionTrainer:
     ``resume=False`` leaves the fold's last checkpoint unread: the
     evaluator takes the trainer for its loaders and restores each fold's
     weights itself.
+
+    Under a process group (``parallel.dcn.initialize_distributed``) the
+    trainer is data-parallel: each loader reads the process's contiguous
+    shard of every epoch (``data_shard``, its ``(rank, world)``),
+    ``batch_size`` is the batch of one process, the step is the global
+    batch's (:class:`TrainRuntime` with ``dp``), validation predictions
+    are gathered so that every rank computes the same metrics, and only
+    rank 0 writes ``scalars.jsonl`` and checkpoints.
 
     ``timing`` accumulates seconds: ``loader_wait`` (the loop blocked on
     the loader's queue), ``train`` and ``val`` (the epochs' loops, waits
@@ -327,6 +388,11 @@ class ProgressionTrainer:
         self.config = config
         self.fold_idx = fold_idx
         model_cfg, train_cfg = config["model"], config["training"]
+        self.dp = create_group((config.get("runtime") or {}).get(
+            "n_devices"))
+        self.data_shard = ((0, 1) if self.dp is None
+                           else (self.dp.rank, self.dp.world))
+        self.is_writer = self.dp is None or self.dp.is_writer
 
         ds_cfg = next(iter(config["data"]["sets"].values()))
         self.modals = list(ds_cfg["modals"])
@@ -357,7 +423,9 @@ class ProgressionTrainer:
         def loader(name, smp, batch_size, **kw):
             return make_batch_loader(lb, self.datasets[name], smp,
                                      int(batch_size), num_workers=nw,
-                                     pin_memory=pin, **kw)
+                                     pin_memory=pin,
+                                     shard_index=self.data_shard[0],
+                                     shard_count=self.data_shard[1], **kw)
 
         self.loaders = {
             "train": loader("train", sampler, train_cfg["batch_size"],
@@ -375,7 +443,7 @@ class ProgressionTrainer:
         self.path_weights_fold = root / "weights" / "prog" / f"fold_{fold_idx}"
         self.path_weights_fold.mkdir(parents=True, exist_ok=True)
         self.path_logs_fold = root / "logs_train" / f"fold_{fold_idx}"
-        self.tb = MetricsLogger(self.path_logs_fold)
+        self.tb = MetricsLogger(self.path_logs_fold, enabled=self.is_writer)
         self.ckpt = make_checkpoint_handler(
             self.path_weights_fold,
             backend=train_cfg.get("ckpt_backend", "msgpack"))
@@ -391,7 +459,7 @@ class ProgressionTrainer:
             torch.manual_seed(0)
             self.runtime = TrainRuntime(config, self.modals, downscale,
                                         self.steps_per_epoch, dtype=dtype,
-                                        device=self.device)
+                                        device=self.device, dp=self.dp)
         self.preprocess_eval = make_preprocess_fn(self.modals, downscale,
                                                   train=False)
         self.rng = PRNGChain(config["seed_train_val"] + 1000)
@@ -412,6 +480,15 @@ class ProgressionTrainer:
         self._init_state(resume)
 
     # ------------------------------------------------------------------
+
+    def dropout_seed(self, epoch_idx: int, step_idx: int) -> int:
+        """The seed of a training step's dropout. Under data parallelism
+        each rank's masks are its own (the seed takes the rank), as JAX
+        draws one key per sample of the global batch."""
+        coords = (epoch_idx, step_idx, 1)
+        if self.dp is not None:
+            coords += (self.dp.rank,)
+        return self.rng.seed(*coords)
 
     def _forked_rng(self):
         """A scope whose changes to the CPU and the trainer's device's
@@ -437,7 +514,9 @@ class ProgressionTrainer:
 
     def _init_state(self, resume: bool = True):
         model_cfg = self.config["model"]
-        check_pretrained_fes(model_cfg)
+        n_grafted = apply_pretrained_fes(model_cfg, self.runtime.model)
+        if n_grafted:
+            logger.info(f"Grafted ImageNet weights into {n_grafted} FEs")
         # explicit weight restore: a checkpoint payload of either package,
         # or a reference-named torch state dict
         if model_cfg.get("restore_weights") and model_cfg.get("path_weights"):
@@ -475,7 +554,7 @@ class ProgressionTrainer:
                 gen = self.rng.generator(epoch_idx, step_idx, 0,
                                          device=self.device)
                 with self._forked_rng():
-                    torch.manual_seed(self.rng.seed(epoch_idx, step_idx, 1))
+                    torch.manual_seed(self.dropout_seed(epoch_idx, step_idx))
                     loss, logits = self.runtime.train_step(xs, ys, gen)
                 loss = loss.item()
                 self.timing["train_steps"] += 1
@@ -527,6 +606,12 @@ class ProgressionTrainer:
         finally:
             rt.model.train()
         self.timing["val"] += time.perf_counter() - t_epoch
+        if self.dp is not None:
+            # every rank's shard, in rank order: the metrics of the whole
+            # validation set, equal on every rank
+            parts = self.dp.all_gather_object((losses, targets, probas))
+            losses, targets, probas = (sum((p[i] for p in parts), [])
+                                       for i in range(3))
         metrics = calc_metrics_v2(
             prog_target=np.concatenate(targets),
             prog_pred_proba=np.concatenate(probas),
@@ -535,12 +620,14 @@ class ProgressionTrainer:
         return metrics
 
     def _save(self, epoch_idx: int) -> None:
+        if not self.is_writer:
+            return
         t0 = time.perf_counter()
         path = self.ckpt.save_new_ckpt(
             self._ckpt_payload(), model_name=self.config["model"]["name"],
             fold_idx=self.fold_idx, epoch_idx=epoch_idx)
         self.timing["ckpt_write"] += time.perf_counter() - t0
-        self.timing["ckpt_bytes"] = path.stat().st_size
+        self.timing["ckpt_bytes"] = ckpt_bytes(path)
 
     def fit(self) -> dict:
         """The epoch loop, with the best checkpoint by

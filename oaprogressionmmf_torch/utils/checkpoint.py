@@ -8,14 +8,25 @@ as flax writes it (msgpack, through the port's own codec): ``step``,
 ``params``, ``batch_stats``, ``opt_state`` in optax's layout, and
 ``plateau`` under ReduceLROnPlateau. :func:`runtime_payload` and
 :func:`load_runtime_payload` carry a ``TrainRuntime`` to and from that
-tree, so each package resumes the other's checkpoints. The orbax backend
-is not ported.
+tree, so each package resumes the other's checkpoints.
+
+``training.ckpt_backend: orbax`` (the JAX package's directory per
+checkpoint, written atomically) is ``torch.distributed.checkpoint`` here:
+the same payload tree in a directory of the same name pattern
+(``….orbax``), written to a temporary directory that is renamed into
+place, with the tree's layout beside the tensors. Under a process group
+rank 0 writes it alone (the state is replicated). A directory that JAX's
+orbax wrote cannot be read: its storage layer (tensorstore, through
+orbax) imports jax; the msgpack backend crosses between the packages.
 """
 
 from __future__ import annotations
 
+import json
 import logging
 import os
+import shutil
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -77,13 +88,120 @@ class CheckpointHandler:
         return path_full
 
 
+# a torch.distributed.checkpoint directory holds this file; one that JAX's
+# orbax wrote does not
+DCP_METADATA = ".metadata"
+LAYOUT_FILE = "layout.json"
+
+
+def _flatten(tree, prefix: str, out: dict):
+    """Tensors of a payload tree under "/"-joined keys; returns its layout
+    (the tree with None leaves, so that empty subtrees survive)."""
+    if isinstance(tree, dict):
+        return {k: _flatten(v, f"{prefix}{k}/", out) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        t = tree.detach()
+    else:
+        a = np.asarray(tree)
+        t = torch.from_numpy(a if a.flags.writeable else a.copy())
+    out[prefix[:-1]] = t.contiguous()
+    return None
+
+
+def _unflatten(layout, prefix: str, flat: dict):
+    if isinstance(layout, dict):
+        return {k: _unflatten(v, f"{prefix}{k}/", flat)
+                for k, v in layout.items()}
+    return flat[prefix[:-1]].numpy()
+
+
+def _dcp(fn, *args, **kwargs):
+    """A torch.distributed.checkpoint call of this process alone (no
+    collectives, also under a process group)."""
+    import torch.distributed.checkpoint as dcp
+
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message=".*single process.*")
+        return getattr(dcp, fn)(*args, no_dist=True, **kwargs)
+
+
+def write_dcp(path, payload) -> None:
+    """The payload tree as a torch.distributed.checkpoint directory at
+    ``path``: written beside it, then renamed into place."""
+    path = Path(path)
+    tmp = path.with_name(path.name + ".tmp")
+    shutil.rmtree(tmp, ignore_errors=True)
+    flat: dict = {}
+    layout = _flatten(payload, "", flat)
+    _dcp("save", flat, checkpoint_id=str(tmp))
+    (tmp / LAYOUT_FILE).write_text(json.dumps(layout))
+    if path.exists():
+        shutil.rmtree(path)
+    os.replace(tmp, path)
+
+
+def read_dcp(path) -> dict:
+    """A directory of :func:`write_dcp` as its payload tree of numpy
+    arrays."""
+    import torch.distributed.checkpoint as dcp
+
+    path = Path(path)
+    if not (path / DCP_METADATA).exists():
+        raise NotImplementedError(
+            f"{path} is not a torch.distributed.checkpoint directory; if "
+            f"JAX's orbax wrote it, the port cannot read it: orbax's storage "
+            f"layer imports jax. Write the checkpoint with "
+            f"training.ckpt_backend=msgpack, which both packages read")
+    meta = dcp.FileSystemReader(str(path)).read_metadata()
+    flat = {k: torch.empty(m.size, dtype=m.properties.dtype)
+            for k, m in meta.state_dict_metadata.items()}
+    _dcp("load", flat, checkpoint_id=str(path))
+    return _unflatten(json.loads((path / LAYOUT_FILE).read_text()), "",
+                      flat)
+
+
+class DcpCheckpointHandler(CheckpointHandler):
+    """``ckpt_backend: orbax``: the JAX package's OrbaxCheckpointHandler
+    surface (a directory per checkpoint, named ``….orbax``, the newest
+    ``num_saved`` kept), written by torch.distributed.checkpoint."""
+
+    def __init__(self, path_root, num_saved=1):
+        super().__init__(path_root,
+                         fname_pattern=("{model_name}__fold_{fold_idx}__"
+                                        "epoch_{epoch_idx:>03d}.orbax"),
+                         num_saved=num_saved)
+
+    def _remove_excessive_ckpts(self):
+        while len(self._all_ckpts) > self.num_saved:
+            shutil.rmtree(self._all_ckpts[0])
+            logger.info(f"Removed ckpt: {self._all_ckpts[0]}")
+            self._all_ckpts = self._all_ckpts[1:]
+
+    def save_new_ckpt(self, payload, model_name, fold_idx, epoch_idx):
+        path_full = Path(self.path_root, self.fname_pattern.format(
+            model_name=model_name, fold_idx=fold_idx, epoch_idx=epoch_idx))
+        write_dcp(path_full, payload)
+        if path_full not in self._all_ckpts:
+            self._all_ckpts.append(path_full)
+        self._remove_excessive_ckpts()
+        return path_full
+
+
+def ckpt_bytes(path) -> int:
+    """The bytes of a checkpoint file or directory."""
+    path = Path(path)
+    if path.is_dir():
+        return sum(p.stat().st_size for p in path.rglob("*") if p.is_file())
+    return path.stat().st_size
+
+
 def make_checkpoint_handler(path_root, backend: str = "msgpack",
                             num_saved: int = 1) -> CheckpointHandler:
-    """Backend-selecting factory (``training.ckpt_backend``)."""
+    """Backend-selecting factory (``training.ckpt_backend``): ``msgpack``
+    (a file, read by either package) or ``orbax`` (a
+    torch.distributed.checkpoint directory)."""
     if backend == "orbax":
-        raise NotImplementedError(
-            "training.ckpt_backend=orbax is not ported (ROADMAP.md §1 item "
-            "1); use 'msgpack', the JAX package's default")
+        return DcpCheckpointHandler(path_root, num_saved=num_saved)
     if backend in ("msgpack", None, ""):
         return CheckpointHandler(path_root, num_saved=num_saved)
     raise ValueError(f"Unknown checkpoint backend: {backend}")
@@ -120,16 +238,15 @@ def migrate_legacy_qkv(tree):
 
 
 def load_ckpt(path):
-    """Read a msgpack checkpoint of either package into a nested dict of
-    numpy arrays that view the file's buffer; legacy fused ``to_qkv``
+    """Read a checkpoint into a nested dict of numpy arrays: a msgpack
+    file of either package (the arrays view the file's buffer) or a
+    directory of :class:`DcpCheckpointHandler`; legacy fused ``to_qkv``
     kernels are split (:func:`migrate_legacy_qkv`).
     :func:`load_runtime_payload` checks the tree against the runtime it
     restores."""
     path = Path(path)
-    if path.is_dir():
-        raise NotImplementedError(f"{path} is an orbax checkpoint, which "
-                                  f"the port does not read")
-    tree, n = migrate_legacy_qkv(read_msgpack(path))
+    tree, n = migrate_legacy_qkv(read_dcp(path) if path.is_dir()
+                                 else read_msgpack(path))
     if n:
         logger.info(f"Migrated {n} fused to_qkv kernels in {path}")
     return tree

@@ -20,6 +20,7 @@ from oaprogressionmmf_tpu.ops import rotate as jax_rotate
 from oaprogressionmmf_tpu.train.trainer import \
     make_preprocess_fn as jax_make_preprocess_fn
 from oaprogressionmmf_torch.ops import preproc, rotate
+from oaprogressionmmf_torch.ops.resize import interpolate
 from oaprogressionmmf_torch.train.trainer import make_preprocess_fn
 from torch_port_util import (FLAGSHIP_MODALS, FLAGSHIP_SMALL,
                              flagship_raw_inputs)
@@ -97,7 +98,8 @@ def _inverse(out, draws, modality):
     return u
 
 
-@pytest.mark.parametrize("modality", ["xr_pa", "sag_3d_dess", "sag_t2_map"])
+@pytest.mark.parametrize("modality", ["xr_pa", "sag_3d_dess", "cor_iw_tse",
+                                      "sag_t2_map"])
 def test_augment_matches_jax(modality):
     """Six samples whose keys give every combination of rotation and gamma
     on and off; JAX's per-sample augment (vmap) against the port's batched
@@ -144,6 +146,51 @@ def test_train_preprocess_with_downscale_matches_jax():
         assert tuple(g.shape) == np.shape(w), m
         np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=OUT_ATOL,
                                    err_msg=m)
+
+
+# training.augment_full_res=false: the downscale, then the augmentation in
+# bf16. Outputs reach |3.2|, where a bf16 ulp is 2^-6; JAX rounds to bf16
+# after each of its two downscale dots and inside the folded rotation,
+# gamma and normalization (constants in bf16), the port after the
+# downscale (computed in float32), the unit range, the rotation and
+# gamma. Measured on these inputs: JAX 0.066 and the port 0.035 from the
+# same order computed in float32, 0.070 (4.5 ulps) from each other.
+FAST_ATOL = 0.1
+FAST_SELF_ATOL = 3 * 2.0 ** -6
+
+
+def test_post_downscale_augment_matches_jax():
+    """``augment_full_res=false`` against JAX's
+    ``make_preprocess_fn(train=True, augment_full_res=False)`` on the same
+    raw inputs and draws: bf16 outputs of the downscaled shapes, within
+    FAST_ATOL of JAX's and within FAST_SELF_ATOL of the same order in
+    float32; ``clin`` exact."""
+    batch = 4
+    xs = flagship_raw_inputs(batch)
+    k_aug = jax.random.key(21)
+    want = jax_make_preprocess_fn(
+        FLAGSHIP_MODALS, FLAGSHIP_SMALL["downscale"], train=True,
+        augment_full_res=False)(tuple(jnp.asarray(x) for x in xs), k_aug)
+    draws = [None if m == "clin" else _jax_draws(jax.random.split(
+        jax.random.fold_in(k_aug, i), batch))
+        for i, m in enumerate(FLAGSHIP_MODALS)]
+    got = make_preprocess_fn(FLAGSHIP_MODALS, FLAGSHIP_SMALL["downscale"],
+                             train=True, augment_full_res=False)(
+        tuple(torch.from_numpy(x) for x in xs), draws)
+    for i, (m, g, w) in enumerate(zip(FLAGSHIP_MODALS, got, want)):
+        w = np.asarray(w, np.float32)
+        assert tuple(g.shape) == w.shape, m
+        if m == "clin":
+            np.testing.assert_array_equal(g.numpy(), w)
+            continue
+        assert g.dtype == torch.bfloat16, m
+        np.testing.assert_allclose(g.float().numpy(), w, atol=FAST_ATOL,
+                                   err_msg=m)
+        small = interpolate(torch.from_numpy(xs[i]).float(),
+                            tuple(FLAGSHIP_SMALL["downscale"][i]))
+        f32 = preproc.make_augment_fn(m)(small, draws[i])
+        np.testing.assert_allclose(g.float().numpy(), f32.numpy(),
+                                   atol=FAST_SELF_ATOL, err_msg=m)
 
 
 def test_draws_come_from_the_generator():

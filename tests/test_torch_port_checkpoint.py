@@ -16,7 +16,8 @@ ReduceLROnPlateau, wrapped in ``optax.inject_hyperparams``):
   exact, and takes an optax update.
 
 Then the handler's names and retention, a legacy fused ``to_qkv`` tree,
-the strict restore and the refused orbax backend.
+the strict restore, and ``ckpt_backend: orbax`` as torch.distributed.checkpoint
+directories (a directory that JAX's orbax wrote stays refused).
 """
 
 import copy
@@ -366,11 +367,93 @@ def test_restore_is_strict():
                                             broken)
 
 
+def _trees_equal(got, want, path=""):
+    assert isinstance(got, dict) == isinstance(want, dict), path
+    if isinstance(want, dict):
+        assert set(got) == set(want), path
+        for k in want:
+            _trees_equal(got[k], want[k], f"{path}/{k}")
+        return
+    want = np.asarray(want)
+    assert got.dtype == want.dtype and got.shape == want.shape, path
+    np.testing.assert_array_equal(got, want, err_msg=path)
+
+
+def test_dcp_round_trip_restores_the_runtime(tmp_path):
+    """``ckpt_backend: orbax`` writes the payload as a
+    torch.distributed.checkpoint directory; it reads back as the same tree
+    (dtypes, shapes, values and the empty optax states: Adam with weight
+    decay under ReduceLROnPlateau holds ``add_decayed_weights``' {} and
+    ``inject_hyperparams``'), and restores a fresh runtime to the
+    writer's parameters, BatchNorm statistics, optimizer state, step and
+    plateau state exactly."""
+    case = "adam_plateau"
+    rt, plateau = _port(case)
+    rt.train_step(_raw_inputs(2), np.array([0, 1]),
+                  torch.Generator().manual_seed(0))
+    rt.lr = plateau.step(0.7)
+    payload = checkpoint.runtime_payload(NAME, rt, plateau)
+    handler = checkpoint.make_checkpoint_handler(tmp_path, backend="orbax")
+    path = handler.save_new_ckpt(payload, NAME, 0, 4)
+    assert path.is_dir() and path.name == f"{NAME}__fold_0__epoch_004.orbax"
+    assert handler.get_last_ckpt() == path
+    assert checkpoint.ckpt_bytes(path) > sum(
+        p.numel() * 4 for p in rt.params)
+    got = checkpoint.load_ckpt(path)
+    _trees_equal(got, payload)
+
+    fresh, fresh_plateau = _port(case)
+    checkpoint.load_runtime_payload(NAME, fresh, got, fresh_plateau)
+    for (n, a), b in zip(rt.model.state_dict().items(),
+                         fresh.model.state_dict().values()):
+        assert torch.equal(a, b), n
+    for key, moments in rt.optimizer_state().items():
+        for n, t in moments.items():
+            assert torch.equal(t, fresh.optimizer_state()[key][n]), (key, n)
+    assert fresh.step == rt.step == 1
+    assert fresh_plateau.state_dict() == plateau.state_dict()
+    assert fresh.lr == rt.lr
+
+
+def test_dcp_names_and_retention_match_jax_orbax(tmp_path):
+    """The port's directories carry the JAX OrbaxCheckpointHandler's names
+    and keep the newest ``num_saved``, as JAX's do."""
+    payload = {"step": np.asarray(3, np.int32),
+               "params": {"w": np.arange(4, dtype=np.float32)}}
+    (tmp_path / "port").mkdir()
+    (tmp_path / "jax").mkdir()
+    ours = checkpoint.make_checkpoint_handler(tmp_path / "port", "orbax")
+    theirs = jax_ckpt.make_checkpoint_handler(tmp_path / "jax", "orbax")
+    for epoch in range(2):
+        a = ours.save_new_ckpt(payload, "XR1Cnn", 2, epoch)
+        b = theirs.save_new_ckpt(payload, "XR1Cnn", 2, epoch)
+        assert a.name == b.name == f"XR1Cnn__fold_2__epoch_{epoch:03d}.orbax"
+    for d in ("port", "jax"):
+        assert [p.name for p in (tmp_path / d).iterdir()] == \
+            ["XR1Cnn__fold_2__epoch_001.orbax"]
+    again = checkpoint.make_checkpoint_handler(tmp_path / "port", "orbax",
+                                               num_saved=2)
+    assert again.get_last_ckpt() == a
+    again.save_new_ckpt(payload, "XR1Cnn", 2, 2)
+    assert len(list((tmp_path / "port").iterdir())) == 2
+    _trees_equal(checkpoint.load_ckpt(again.get_last_ckpt()), payload)
+
+
 def test_orbax_is_refused(tmp_path):
-    with pytest.raises(NotImplementedError, match="orbax"):
-        checkpoint.make_checkpoint_handler(tmp_path, backend="orbax")
-    with pytest.raises(NotImplementedError, match="orbax"):
-        checkpoint.load_ckpt(tmp_path)
+    """What stays refused: a directory that JAX's orbax wrote (reading it
+    needs orbax's storage layer, which imports jax), also where the
+    port's handler finds it as a fold's last checkpoint; an unknown
+    backend."""
+    payload = {"step": np.asarray(3, np.int32)}
+    theirs = jax_ckpt.make_checkpoint_handler(tmp_path, "orbax")
+    path = theirs.save_new_ckpt(payload, "XR1Cnn", 0, 0)
+    with pytest.raises(NotImplementedError, match="orbax.*imports jax"):
+        checkpoint.load_ckpt(path)
+    last = checkpoint.make_checkpoint_handler(tmp_path, "orbax") \
+        .get_last_ckpt()
+    assert last == path
+    with pytest.raises(NotImplementedError, match="msgpack"):
+        checkpoint.load_ckpt(last)
     with pytest.raises(ValueError, match="Unknown"):
         checkpoint.make_checkpoint_handler(tmp_path, backend="tar")
 

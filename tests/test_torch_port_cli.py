@@ -31,6 +31,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 import yaml
 
 import jax
@@ -48,8 +49,10 @@ from torch_port_util import assert_percent_close
 
 JAX_CONF = Path(jax_config.__file__).parent / "run" / "conf"
 PORT_CONF = port_run.CONF_DIR
-CONF_FILES = sorted(["prog_fus.yaml"] + [
-    f"model/{p.name}" for p in (JAX_CONF / "model").glob("*.yaml")])
+# the JAX package's whole conf tree (prog_fus.yaml, prog_clin.yaml, the
+# model group)
+CONF_FILES = sorted(p.relative_to(JAX_CONF).as_posix()
+                    for p in JAX_CONF.rglob("*.yaml"))
 PROB_ATOL = 5e-4
 ATTR_ATOL = 1e-3
 ANALYSIS_ATOL = 1e-12
@@ -105,15 +108,37 @@ def test_load_config_errors_equal_jax():
 
 @pytest.mark.parametrize("app", [train_prog_fus, eval_prog_fus,
                                  export_serving])
-def test_apps_refuse_parallel_runtimes(app):
-    for runtime, match in (({"distributed": {"enable": True}},
-                            "distributed"),
-                           ({"n_devices": 2}, "n_devices")):
-        with pytest.raises(NotImplementedError, match=match):
-            app.run({"runtime": runtime}, device="cpu")
-    with pytest.raises(NotImplementedError, match="parallelism"):
-        port_run.initialize_distributed({"distributed": {"enable": True}})
-    assert port_run.initialize_distributed({"distributed": None}) == (0, 1)
+def test_apps_refuse_parallel_runtimes(app, monkeypatch):
+    """What the apps refuse: ``runtime.n_devices`` > 1 in one process (the
+    port runs one process per device and says to launch with torchrun);
+    the training and evaluation apps also ``distributed.enable`` without
+    an address or torchrun's environment. A single-rank gloo group starts
+    through ``start_processes`` and gives the shard (0, 1)."""
+    with pytest.raises(ValueError, match="torchrun --nproc-per-node 2"):
+        app.run({"runtime": {"n_devices": 2}}, device="cpu")
+    for key in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK"):
+        monkeypatch.delenv(key, raising=False)
+    if app is not export_serving:
+        with pytest.raises(ValueError, match="coordinator_address"):
+            app.run({"runtime": {"distributed": {"enable": True}}},
+                    device="cpu")
+    assert port_run.start_processes({"runtime": {"distributed": None}},
+                                    "cpu") == (torch.device("cpu"), (0, 1))
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    single = {"enable": True, "coordinator_address": f"127.0.0.1:{port}",
+              "num_processes": 1, "process_id": 0}
+    try:
+        assert port_run.start_processes(
+            {"runtime": {"distributed": single, "n_devices": 1}}, "cpu") \
+            == (torch.device("cpu"), (0, 1))
+        assert torch.distributed.get_backend() == "gloo"
+        with pytest.raises(ValueError, match="has 1 processes"):
+            port_run.check_runtime({"runtime": {"n_devices": 2}})
+    finally:
+        torch.distributed.destroy_process_group()
 
 
 # ---------------------------------------------------------------------------

@@ -186,6 +186,31 @@ def test_pickles_hold_python_values_in_jax_schema(jax_results,
     assert proc.stdout.strip() == "ok", proc.stderr
 
 
+def test_pickles_are_renamed_into_place(port_results, tmp_path,
+                                        monkeypatch):
+    """Rank 0 writes each pickle beside its name and renames it into
+    place, so that another rank checking the cache
+    (``testing.use_cached``) finds the whole pickle or none: no temporary
+    file is left, and at the rename the name does not exist yet while
+    the temporary holds the whole pickle."""
+    ev = port_results[0]
+    assert not list(ev.path_logs.glob(".*"))
+    seen, replace = [], port_evaluator.os.replace
+
+    def spy(src, dst):
+        src, dst = Path(src), Path(dst)
+        seen.append((src.parent == dst.parent, dst.exists(),
+                     pickle.loads(src.read_bytes())))
+        replace(src, dst)
+
+    monkeypatch.setattr(port_evaluator.os, "replace", spy)
+    path = tmp_path / "eval_fus_raw_ens.pkl"
+    ev._write(path, {"predict": [1, 0]})
+    assert seen == [(True, False, {"predict": [1, 0]})]
+    assert pickle.loads(path.read_bytes()) == {"predict": [1, 0]}
+    assert [p.name for p in tmp_path.iterdir()] == [path.name]
+
+
 def test_ensembles_equal_jax_on_the_same_raw_dicts(jax_results,
                                                    port_results):
     jax_ev, jax_pk = jax_results

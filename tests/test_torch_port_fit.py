@@ -42,7 +42,6 @@ from oaprogressionmmf_tpu.utils.torch_interop import \
 from oaprogressionmmf_torch.train.trainer import ProgressionTrainer
 from oaprogressionmmf_torch.utils.convert import (from_jax_variables,
                                                   to_jax_variables)
-from oaprogressionmmf_torch.utils.pretrained import check_pretrained_fes
 from synth_oai import build_synth_tree, make_synth_config
 from torch_port_util import jax_augment_draws, synth_variables
 
@@ -337,18 +336,128 @@ def test_reference_state_dict_restores_strictly(tree, jax_run):
         ProgressionTrainer(config, 0, device="cpu")
 
 
-def test_pretrained_follows_the_jax_rule(tmp_path, monkeypatch, caplog):
+# torchvision's ResNet children under the port's ResNetFE indices
+TV_RESNET = {"0": "conv1", "1": "bn1", "4": "layer1", "5": "layer2",
+             "6": "layer3", "7": "layer4"}
+# keys of torchvision's checkpoints outside the FE, which the graft drops
+TV_EXTRA = {"resnet": ("fc.weight", "fc.bias"),
+            "squeezenet1_0": ("classifier.1.weight", "classifier.1.bias"),
+            "vgg16": ("classifier.0.weight", "classifier.6.bias"),
+            "densenet161": ("classifier.weight", "classifier.bias"),
+            "inception_v3": ("AuxLogits.conv0.conv.weight", "fc.weight")}
+
+
+def torchvision_state_dict(arch: str, seed: int = 0) -> dict:
+    """A state dict under torchvision's names for ``arch`` with random
+    values (BatchNorm variances in [0.5, 1.5]), a classifier included:
+    the port FE's shapes, its ResNet indices renamed to torchvision's
+    children."""
+    from oaprogressionmmf_torch.models.resnet import FE_ARCHS
+
+    with torch.device("meta"):
+        fe = FE_ARCHS[arch](with_gap=True)
+    rng = np.random.RandomState(seed)
+    sd = {}
+    for key, t in fe.state_dict().items():
+        if arch in ("resnet18", "resnet34", "resnet50", "resnext50_32x4d"):
+            head, rest = key.split(".", 1)
+            key = f"{TV_RESNET[head]}.{rest}"
+        if key.endswith("num_batches_tracked"):
+            sd[key] = torch.tensor(0)
+        elif key.endswith("running_var"):
+            sd[key] = torch.from_numpy(
+                rng.uniform(0.5, 1.5, tuple(t.shape)).astype(np.float32))
+        else:
+            sd[key] = torch.from_numpy(
+                rng.normal(0, 0.1, tuple(t.shape)).astype(np.float32))
+    for key in TV_EXTRA.get(arch, TV_EXTRA["resnet"]):
+        sd[key] = torch.zeros(3)
+    return sd
+
+
+@pytest.mark.parametrize("arch", ["resnet18", "resnet34", "resnet50",
+                                  "resnext50_32x4d", "squeezenet1_0",
+                                  "vgg16", "densenet161", "inception_v3"])
+def test_graft_maps_every_architecture_as_jax_does(arch):
+    """torchvision's names → the port's, against JAX's
+    ``convert_torch_*_state`` (torchvision's names → flax) carried to the
+    port's names by ``any_fe_state_dict``: the same keys and values, the
+    classifier dropped."""
+    from oaprogressionmmf_tpu.utils.pretrained import _converter_for
+    from oaprogressionmmf_torch.utils.convert import any_fe_state_dict
+    from oaprogressionmmf_torch.utils.pretrained import \
+        torchvision_fe_state_dict
+
+    sd = torchvision_state_dict(arch)
+    got = torchvision_fe_state_dict(arch, sd)
+    params, stats = _converter_for(arch)(sd)
+    want = {k: v for k, v in any_fe_state_dict(
+        jax.tree_util.tree_map(np.asarray, params),
+        jax.tree_util.tree_map(np.asarray, stats) if stats else None
+    ).items() if not k.endswith("num_batches_tracked")}
+    assert set(got) == set(want)
+    for k, w in want.items():
+        assert torch.equal(got[k], w), k
+
+
+def test_pretrained_follows_the_jax_rule(tree, tmp_path, monkeypatch,
+                                        caplog):
     """``fe.pretrained: true`` without a local torchvision file keeps the
-    initialization with a warning; with one, the graft (not ported) is
-    refused rather than ignored."""
+    initialization with a warning; with a torchvision-named resnet18 file
+    the port grafts what JAX's ``apply_pretrained_fes`` grafts (every
+    variable equal), the grafted model's forward equals JAX's, and the
+    trainer grafts at its start."""
+    from oaprogressionmmf_tpu.utils.pretrained import \
+        apply_pretrained_fes as jax_apply
+    from oaprogressionmmf_torch.models import dict_models
+    from oaprogressionmmf_torch.utils.pretrained import apply_pretrained_fes
+
     monkeypatch.setenv("TORCH_HOME", str(tmp_path / "hub"))
     monkeypatch.setenv("OAPROG_PRETRAINED_DIR", str(tmp_path))
-    cfg = {"name": NAME, "fe": {"arch": "resnet18", "pretrained": True}}
-    check_pretrained_fes(cfg)
+    config = _config(tmp_path, "graft")
+    cfg = config.model.to_dict()
+    cfg["fe"]["pretrained"] = True
+    port = dict_models[NAME](cfg).eval()
+    before = {k: v.clone() for k, v in port.state_dict().items()}
+    assert apply_pretrained_fes(cfg, port) == 0
     assert "No local ImageNet checkpoint for resnet18" in caplog.text
-    (tmp_path / "resnet18-5c106cde.pth").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="pretrained"):
-        check_pretrained_fes(cfg)
+    for k, v in port.state_dict().items():
+        assert torch.equal(v, before[k]), k
+
+    sd = torchvision_state_dict("resnet18", seed=3)
+    torch.save(sd, tmp_path / "resnet18-5c106cde.pth")
+    jax_model = jax_models[NAME](config=cfg)
+    x = np.random.RandomState(4).rand(2, 1, 64, 64).astype(np.float32)
+    variables = synth_variables(
+        lambda: jax_model.init(jax.random.key(0), jnp.asarray(x),
+                               train=False), seed=5)
+    params, stats, n = jax_apply(cfg, jax.tree_util.tree_map(
+        np.asarray, variables["params"]), jax.tree_util.tree_map(
+        np.asarray, variables["batch_stats"]))
+    assert n == 1
+    port.load_state_dict(from_jax_variables(NAME, variables))
+    assert apply_pretrained_fes(cfg, port) == 1
+    want = from_jax_variables(NAME, {"params": params,
+                                     "batch_stats": stats})
+    got = port.state_dict()
+    for k, w in want.items():
+        if not k.endswith("num_batches_tracked"):
+            assert torch.equal(got[k], w), k
+    assert torch.equal(got["_fe.0.weight"], sd["conv1.weight"])
+    with jax.default_matmul_precision("highest"):
+        out = jax_model.apply({"params": params, "batch_stats": stats},
+                              jnp.asarray(x), train=False)
+    with torch.no_grad():
+        logits = port(torch.from_numpy(x))["main"]
+    np.testing.assert_allclose(logits.numpy(), np.asarray(out["main"]),
+                               atol=5e-4)
+
+    config = _config(tree, "graft").to_dict()
+    config["model"]["fe"]["pretrained"] = True
+    trainer = ProgressionTrainer(config, 0, device="cpu")
+    assert torch.equal(
+        trainer.runtime.model.state_dict()["_fe.0.weight"],
+        sd["conv1.weight"])
 
 
 def test_device_none_raises_without_a_gpu(tree, monkeypatch):

@@ -83,19 +83,34 @@ PREP_MODULES = ("oaprogressionmmf_torch.utils.dicom",
                 "oaprogressionmmf_torch.run.prepare_targets_oai")
 
 
+# the parallel layer, the clinical baselines and the backends that stand
+# in for grain and orbax, named for the same reason
+PARALLEL_MODULES = ("oaprogressionmmf_torch.parallel",
+                    "oaprogressionmmf_torch.parallel.dcn",
+                    "oaprogressionmmf_torch.parallel.mesh",
+                    "oaprogressionmmf_torch.parallel.tp",
+                    "oaprogressionmmf_torch.run.train_prog_clin",
+                    "oaprogressionmmf_torch.data.pipeline",
+                    "oaprogressionmmf_torch.utils.checkpoint",
+                    "oaprogressionmmf_torch.utils.pretrained")
+
+
 def test_port_imports_without_the_host_packages():
     """The machine with the card has no pandas, scikit-learn, PyYAML, PIL,
     cv2 or matplotlib: every module of the port imports without them (the
     data layer and the prep apps import pandas and PIL inside the functions
     that read data; the config loader and the apps PyYAML, the analysis
-    pandas, SciPy and matplotlib inside the functions that need them)."""
+    pandas, SciPy and matplotlib, the clinical baselines scikit-learn
+    inside the functions that need them), and none needs grain or orbax
+    (the worker loader and the checkpoint directories are torch's)."""
     assert set(EVAL_MODULES) <= set(PORT_MODULES)
     assert set(PREP_MODULES) <= set(PORT_MODULES)
+    assert set(PARALLEL_MODULES) <= set(PORT_MODULES)
     code = (
         "import importlib, sys\n"
         "for m in ('jax', 'jaxlib', 'flax', 'msgpack',\n"
         "          'oaprogressionmmf_tpu', 'pandas', 'sklearn', 'yaml',\n"
-        "          'PIL', 'cv2', 'matplotlib'):\n"
+        "          'PIL', 'cv2', 'matplotlib', 'grain', 'orbax'):\n"
         "    sys.modules[m] = None\n"
         f"for m in {PORT_MODULES!r}:\n"
         "    importlib.import_module(m)\n"
@@ -112,7 +127,8 @@ def test_port_sources_name_no_jax_module():
             code = line.split("#")[0]
             assert not code.lstrip().startswith(
                 ("import jax", "from jax", "import flax", "from flax",
-                 "import msgpack", "from msgpack",
+                 "import msgpack", "from msgpack", "import grain",
+                 "from grain", "import orbax", "from orbax",
                  "from oaprogressionmmf_tpu", "import oaprogressionmmf_tpu")
             ), f"{path}: {line}"
 

@@ -8,6 +8,8 @@ included. The data is the ``tests/synth_oai.py`` tree with X-ray, DESS and
 clinical values (12 patients, 24 knees).
 """
 
+import pickle
+
 import numpy as np
 import pytest
 import torch
@@ -19,6 +21,7 @@ from oaprogressionmmf_torch.data import pipeline
 from oaprogressionmmf_torch.data.provider import prepare_datasets
 from oaprogressionmmf_torch.utils.seeding import PRNGChain
 from synth_oai import build_synth_tree, make_synth_config
+from torch_port_toy_data import ToyDataset
 
 MODALS = ("xr_pa", "sag_3d_dess", "clin")
 
@@ -32,22 +35,6 @@ def test_weighted_sampler_order_equals_jax(seed, epoch):
                                         seed=seed).epoch_indices(epoch)
     np.testing.assert_array_equal(got, want)
     assert got.dtype == want.dtype
-
-
-class ToyDataset:
-    """Samples that depend on (idx, epoch): an image, a target, a name."""
-
-    def __init__(self, n):
-        self.n = n
-
-    def __len__(self):
-        return self.n
-
-    def get(self, idx, epoch=0):
-        img = np.full((1, 3, 2), idx * 100 + epoch, np.uint8)
-        return {"image__xr_pa": img,
-                "target": np.asarray([idx % 2], np.int32),
-                "exam_knee_id": f"knee{idx}"}
 
 
 LOADER_CASES = {
@@ -97,14 +84,72 @@ def test_loader_raises_a_read_error_in_the_consumer():
         list(loader.epoch(0))
 
 
+def _assert_batches_equal(got, want):
+    assert len(got) == len(want) > 0
+    for g, w in zip(got, want):
+        assert g["_n_valid"] == w["_n_valid"]
+        assert g["exam_knee_id"] == w["exam_knee_id"]
+        for k in ("image__xr_pa", "target"):
+            assert isinstance(g[k], torch.Tensor)
+            np.testing.assert_array_equal(g[k].numpy(), np.asarray(w[k]))
+
+
+WORKER_CASES = {
+    "plain": (lambda: pipeline.SequentialSampler(11),
+              {"pad_to_batch": True}),
+    "shard_1_of_2": (lambda: pipeline.SequentialSampler(11),
+                     {"shard_index": 1, "shard_count": 2}),
+    "weighted": (lambda: pipeline.WeightedSampler(np.arange(11) % 3, seed=4),
+                 {"drop_last": True}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(WORKER_CASES))
+def test_worker_loader_equals_jax_grain(case):
+    """``loader_backend: grain``: two worker processes of
+    torch.utils.data yield the batches of JAX's GrainBatchLoader (grain's
+    index pipeline, read in process) and of the threads backend, in
+    order; the weighted case in an epoch other than 0."""
+    make_sampler, kw = WORKER_CASES[case]
+    epoch = 2 if case == "weighted" else 0
+    ds = ToyDataset(11)
+    loader = pipeline.make_batch_loader("grain", ds, make_sampler(), 3,
+                                        num_workers=2, **kw)
+    assert isinstance(loader, pipeline.WorkerBatchLoader)
+    got = list(loader.epoch(epoch))
+    assert len(got) == len(loader)
+    want = list(jax_pipeline.make_batch_loader(
+        "grain", ds, make_sampler(), 3, mesh=None, num_workers=0,
+        **kw).epoch(epoch))
+    _assert_batches_equal(got, want)
+    threads = list(pipeline.BatchLoader(ds, make_sampler(), 3,
+                                        num_workers=2, **kw).epoch(epoch))
+    _assert_batches_equal(got, [{k: (v.numpy() if isinstance(
+        v, torch.Tensor) else v) for k, v in b.items()} for b in threads])
+
+
 def test_grain_backend_is_refused():
-    ds = ToyDataset(4)
-    with pytest.raises(NotImplementedError, match="grain"):
-        pipeline.make_batch_loader("grain", ds,
-                                   pipeline.SequentialSampler(4), 2)
+    """What the worker backend refuses: a dataset that does not pickle
+    (its workers are spawned, as grain's are) stops the epoch with the
+    pickling error; an unknown backend raises. The threads backend takes
+    both datasets."""
+    class Unpicklable(ToyDataset):
+        pass
+
+    ds = Unpicklable(4)
+    loader = pipeline.make_batch_loader("grain", ds,
+                                        pipeline.SequentialSampler(4), 2,
+                                        num_workers=1)
+    with pytest.raises((AttributeError, TypeError, pickle.PicklingError),
+                       match="local object"), \
+            pytest.warns(UserWarning, match="pickle"):
+        next(loader.epoch(0))
     assert isinstance(pipeline.make_batch_loader(
         "threads", ds, pipeline.SequentialSampler(4), 2),
         pipeline.BatchLoader)
+    with pytest.raises(ValueError, match="Unknown loader backend"):
+        pipeline.make_batch_loader("dali", ds,
+                                   pipeline.SequentialSampler(4), 2)
 
 
 def test_prng_chain_is_a_pure_function_of_its_coordinates():
@@ -175,3 +220,26 @@ def test_train_crops_move_with_the_epoch(folds):
     assert not np.array_equal(a["image__sag_3d_dess"],
                               b["image__sag_3d_dess"])
     np.testing.assert_array_equal(a["clin_vec"], b["clin_vec"])
+
+
+def test_all_readable_finds_the_failures_jax_finds(tmp_path):
+    """The read sweep (``DatasetOAI3d.test_all_readable``) over a tree
+    with one X-ray overwritten by bytes that are no PNG: the same failing
+    index in both packages, in index order, every other sample read."""
+    from oaprogressionmmf_tpu.data.dataset import \
+        DatasetOAI3d as JaxDataset
+    from oaprogressionmmf_torch.data.dataset import DatasetOAI3d
+    from oaprogressionmmf_torch.data.index import index_from_path_oai
+
+    build_synth_tree(tmp_path, n_patients=3, modals=("xr_pa",))
+    df = index_from_path_oai(tmp_path, ["clin", "xr_pa"], ignore_cache=True)
+    df[("-", "target")] = df[("-", "prog_kl_48")]
+    broken = 3
+    path = df.iloc[broken][("xr_pa", "path_image")]
+    with open(path, "wb") as f:
+        f.write(b"not a png")
+    got = DatasetOAI3d(df, ["xr_pa"], crop_sizes=[[64, 64]]) \
+        .test_all_readable(n_jobs=2)
+    want = JaxDataset(df, ["xr_pa"], crop_sizes=[[64, 64]]) \
+        .test_all_readable(n_jobs=2)
+    assert got == want == [broken]

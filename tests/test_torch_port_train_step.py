@@ -263,20 +263,36 @@ def _small_runtime(model_cfg, seed):
 
 def test_train_step_draws_from_the_generator():
     """The augmentation draws come from the generator passed in: the same
-    seed gives the same step, another seed another one."""
+    seed gives the same step, another seed another one (each step from
+    the same initial weights and a fresh optimizer)."""
     xs, ys = flagship_raw_inputs(2), np.array([0, 1])
+    rt = _small_runtime(_config()["model"], seed=0)
+    initial = copy.deepcopy(rt.model.state_dict())
     losses = []
     for gen_seed in (1, 1, 2):
-        rt = _small_runtime(_config()["model"], seed=0)
+        rt.model.load_state_dict(initial)
+        rt.optimizer.state.clear()
+        rt.step = 0
         gen = torch.Generator().manual_seed(gen_seed)
         losses.append(rt.train_step(xs, ys, gen)[0].item())
         assert rt.step == 1
     assert losses[0] == losses[1] != losses[2]
 
 
+@pytest.fixture(scope="module")
+def plain_and_inputs():
+    """The flagship without dropout and a preprocessed eval batch, shared
+    by the dropout cases."""
+    plain = _small_runtime(_config()["model"], seed=0).model
+    pre = make_preprocess_fn(FLAGSHIP_MODALS, FLAGSHIP_SMALL["downscale"],
+                             train=False)
+    return plain, pre(tuple(torch.from_numpy(x)
+                            for x in flagship_raw_inputs(2)))
+
+
 @pytest.mark.parametrize("where", ["fe.xr", "fe.mr", "fe.clin",
                                    "agg.emb_dropout", "agg.mlp_dropout"])
-def test_dropout_applies_only_in_train_mode(where):
+def test_dropout_applies_only_in_train_mode(where, plain_and_inputs):
     """Each dropout of the flagship (FE features, the clinical encoder,
     FeaT embedding, attention/MLP and heads) changes the output in train()
     and not in eval(); the same model without it is deterministic in
@@ -288,10 +304,7 @@ def test_dropout_applies_only_in_train_mode(where):
     else:
         cfg["agg"][key] = 0.5
     model = _small_runtime(cfg, seed=0).model
-    plain = _small_runtime(_config()["model"], seed=0).model
-    pre = make_preprocess_fn(FLAGSHIP_MODALS, FLAGSHIP_SMALL["downscale"],
-                             train=False)
-    inputs = pre(tuple(torch.from_numpy(x) for x in flagship_raw_inputs(2)))
+    plain, inputs = plain_and_inputs
 
     def twice(m):
         with torch.no_grad():
@@ -306,24 +319,35 @@ def test_dropout_applies_only_in_train_mode(where):
 
 
 @pytest.mark.parametrize("change,error", [
-    ({"augment_full_res": False}, NotImplementedError),
+    ({"augment_full_res": False}, None),
     ({"sched": {"name": "ReduceLROnPlateau", "params": {}}}, ValueError),
 ], ids=["post_downscale_augment", "plateau"])
 def test_unported_training_options_are_refused(change, error):
-    """``augment_full_res=false`` is refused by the runtime, and
-    ReduceLROnPlateau as a step schedule by ``make_lr_schedule``: it is
-    metric-driven, stepped by the training loop (the runtime takes it:
-    test_runtime_takes_reduce_lr_on_plateau)."""
+    """ReduceLROnPlateau as a step schedule is refused by
+    ``make_lr_schedule``: it is metric-driven, stepped by the training
+    loop (the runtime takes it: test_runtime_takes_reduce_lr_on_plateau).
+    ``augment_full_res=false``, refused until the post-downscale bf16
+    augmentation was ported, is taken: the runtime's preprocessing gives
+    bf16 inputs of the downscaled shapes and the step trains
+    (test_torch_port_augment.py holds it against JAX)."""
     cfg = _config()
     cfg["training"].update(change)
-    with pytest.raises(error, match="ProgressionTrainer" if "sched" in change
-                       else None):
-        if "sched" in change:
+    if error is not None:
+        with pytest.raises(error, match="ProgressionTrainer"):
             make_lr_schedule(change["sched"]["name"],
                              change["sched"]["params"], 1e-4, 1)
-        else:
-            TrainRuntime(cfg, FLAGSHIP_MODALS, cfg["model"]["downscale"], 1,
-                         dtype=torch.float32, device="cpu")
+        return
+    rt = TrainRuntime(cfg, FLAGSHIP_MODALS, cfg["model"]["downscale"], 1,
+                      dtype=torch.float32, device="cpu")
+    xs = flagship_raw_inputs(2)
+    draws = rt.sample_draws(torch.Generator().manual_seed(0), 2)
+    inputs = rt.preprocess(rt.to_device(xs), draws)
+    assert [x.dtype for x in inputs] == [torch.bfloat16] * 3 + [torch.float32]
+    assert tuple(inputs[1].shape) == (2, 1, 32, 32, 4)
+    before = rt.params[0].detach().clone()
+    loss, _ = rt.train_step(xs, np.array([0, 1]), draws=draws)
+    assert np.isfinite(loss.item())
+    assert not torch.equal(rt.params[0], before)
 
 
 def test_runtime_takes_reduce_lr_on_plateau():

@@ -6,9 +6,21 @@ JAX module and its port see the same non-trivial values, BatchNorm
 statistics included.
 """
 
+import os
+
 import numpy as np
+import torch
 
 import jax
+
+# Under pytest-xdist every worker imports this module at collection. The
+# workers share the machine's cores, and torch's default of one intra-op
+# thread per core in each of them oversubscribes the cores (a port test
+# ran 13x slower in a 6-worker run than alone): each worker takes its
+# share instead.
+_XDIST_WORKERS = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
+if _XDIST_WORKERS > 1:
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // _XDIST_WORKERS))
 
 # the flagship family at test size (tests/test_models_families.py sizes,
 # with a downscale so the eval preprocessing's resize runs)
