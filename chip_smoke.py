@@ -2302,6 +2302,18 @@ def phase_fit(card: str, train_ms: float, root: str) -> tuple:
         return out
 
     resumed.runtime.train_step = timed_step
+    epoch_s = {"train": 0.0, "val": 0.0}
+
+    def timed_epoch(kind, bare):
+        def run(*args, **kwargs):
+            t = time.perf_counter()
+            out = bare(*args, **kwargs)
+            epoch_s[kind] += time.perf_counter() - t
+            return out
+        return run
+
+    resumed.train_epoch = timed_epoch("train", resumed.train_epoch)
+    resumed.val_epoch = timed_epoch("val", resumed.val_epoch)
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     with kernel_inputs() as seen:
@@ -2320,12 +2332,12 @@ def phase_fit(card: str, train_ms: float, root: str) -> tuple:
     errs = check_fit_inputs(seen)
     del seen
     steps = tm["train_steps"]
-    loop_ms = (tm["train"] - tm["loader_wait"]) / steps * 1e3
+    loop_ms = (epoch_s["train"] - tm["loader_wait"]) / steps * 1e3
     log(f"[fit] ms per training step inside fit: the loop less the "
         f"loader wait {loop_ms:.2f}, each step {step_ms} (synchronized) "
         f"against phase 5's bare step {train_ms:.2f}; loader wait per "
         f"step {tm['loader_wait'] / steps * 1e3:.2f} ms; validation "
-        f"{tm['val'] / tm['val_batches'] * 1e3:.2f} ms per batch of 16 "
+        f"{epoch_s['val'] / tm['val_batches'] * 1e3:.2f} ms per batch of 16 "
         f"(loader and metrics included); peak device memory "
         f"{peak_gb:.2f} GB  [{card}]")
     t0 = time.perf_counter()

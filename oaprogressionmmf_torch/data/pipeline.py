@@ -14,10 +14,13 @@ from __future__ import annotations
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
+from contextlib import nullcontext
 from typing import Sequence
 
 import numpy as np
 import torch
+
+from .. import tracing
 
 
 class WeightedSampler:
@@ -137,7 +140,10 @@ class BatchLoader:
         return batch
 
     def epoch(self, epoch_idx: int = 0):
-        """Generator of the batches of one epoch, read ahead."""
+        """Generator of the batches of one epoch, read ahead. Each batch's
+        read and assembly on the producer thread is the span
+        ``loader.batch``, id ``(epoch_idx, batch index)``, recorded when
+        the thread that starts the epoch records."""
         order = self._shard_order(self.sampler.epoch_indices(epoch_idx))
         nb = self.batches_per_epoch()
         chunks = [order[i * self.batch_size:(i + 1) * self.batch_size]
@@ -145,18 +151,24 @@ class BatchLoader:
 
         out_q: queue.Queue = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()
+        # a profiler session covers only the thread that opened it
+        traced = tracing.active()
 
         def produce():
             try:
                 with ThreadPoolExecutor(max_workers=self.num_workers) as pool:
-                    for chunk in chunks:
+                    for b, chunk in enumerate(chunks):
                         if stop.is_set():
                             return
-                        items = list(pool.map(
-                            lambda i: self.dataset.get(int(i),
-                                                       epoch=epoch_idx),
-                            chunk))
-                        if not _put(out_q, self._assemble(items), stop):
+                        with (tracing.recording() if traced
+                              else nullcontext()), tracing.span(
+                                "loader.batch", id=(epoch_idx, b)):
+                            items = list(pool.map(
+                                lambda i: self.dataset.get(int(i),
+                                                           epoch=epoch_idx),
+                                chunk))
+                            batch = self._assemble(items)
+                        if not _put(out_q, batch, stop):
                             return
                 _put(out_q, None, stop)
             except BaseException as e:  # raised again in the consumer

@@ -20,11 +20,13 @@ The msgpack payload is read and written by ``utils/msgpack_io.py`` (no
 from __future__ import annotations
 
 import copy
+import itertools
 import json
 from pathlib import Path
 
 import torch
 
+from . import tracing
 from .device import resolve_device
 from .models import dict_models
 from .ops.quant import cast_model, prepare_int8
@@ -37,13 +39,19 @@ BUNDLE_FORMAT = "oaprog-serving-bundle"
 BUNDLE_VERSION = 1
 QUANT_MODES = ("none", "int8", "int8-all")
 DTYPE_NAMES = {torch.bfloat16: "bfloat16", torch.float32: "float32"}
+_requests = itertools.count(1)
 
 
 class Predictor:
     """Callable from the raw ``xs`` tuple (numpy arrays or tensors, one per
     modality) to (B, classes) float32 probabilities on ``device``.
     ``meta`` is the bundle's meta for a predictor from
-    :func:`load_serving_bundle`, else None."""
+    :func:`load_serving_bundle`, else None.
+
+    A call is the span ``serve.request`` (id: the process's request
+    count), which holds ``serve.upload`` and the spans of
+    :func:`~.train.trainer.eval_step`; it ends once the work is issued,
+    before the device is done."""
 
     def __init__(self, model, preprocess, device: torch.device, meta=None):
         self.model = model
@@ -52,15 +60,21 @@ class Predictor:
         self.meta = meta
 
     def to_device(self, xs) -> tuple:
-        return tuple(torch.as_tensor(x).to(self.device, non_blocking=True)
-                     for x in xs)
+        with tracing.span("serve.upload"):
+            return tuple(torch.as_tensor(x).to(self.device,
+                                               non_blocking=True)
+                         for x in xs)
 
     def __call__(self, xs) -> torch.Tensor:
-        return eval_step(self.model, self.preprocess, self.to_device(xs))[1]
+        with tracing.span("serve.request", id=next(_requests)):
+            return eval_step(self.model, self.preprocess,
+                             self.to_device(xs))[1]
 
     def logits(self, xs) -> torch.Tensor:
         """The float32 logits behind :meth:`__call__`'s probabilities."""
-        return eval_step(self.model, self.preprocess, self.to_device(xs))[0]
+        with tracing.span("serve.request", id=next(_requests)):
+            return eval_step(self.model, self.preprocess,
+                             self.to_device(xs))[0]
 
 
 def _materialize_buffers(model) -> None:

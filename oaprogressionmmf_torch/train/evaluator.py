@@ -29,7 +29,8 @@ ensemble's join (the JAX package drops ``time_per_sample`` alone, so its
 p50/p95 scalars become columns that the merge suffixes, and at five folds
 it raises); ``profile=compute`` counts the FLOPs of matmuls and
 convolutions, where XLA's cost analysis counts every operation;
-``profile=trace`` writes a torch trace; the JAX package's bf16 fast
+``profile=trace`` writes a torch trace, the program's spans in it
+(``tracing.py``); the JAX package's bf16 fast
 downscale under ``testing.quant=int8`` is accepted and ignored.
 
 The output lists hold Python ints, floats and strs only, so the pickles
@@ -48,6 +49,7 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
+from .. import tracing
 from ..device import resolve_device
 from ..serving import (calibrate_quant_acts, make_predictor,
                        quantized_model_config)
@@ -242,6 +244,7 @@ class ProgressionEvaluator:
             if self.device.type == "cuda":
                 activities.append(torch.profiler.ProfilerActivity.CUDA)
             prof = torch.profiler.profile(activities=activities)
+            t_trace = time.time_ns()
             prof.__enter__()
 
         batch_times: list = []
@@ -283,6 +286,8 @@ class ProgressionEvaluator:
             path.mkdir(parents=True, exist_ok=True)
             fn = path / f"eval_{len(list(path.glob('eval_*.json')))}.json"
             prof.export_chrome_trace(str(fn))
+            tracing.add_to_chrome_trace(fn, [s for s in tracing.spans()
+                                             if s.start_ns >= t_trace])
             logger.info(f"Wrote a torch.profiler trace to {fn}")
         if profile == "time" and batch_times:
             # per-knee latency = the batch's wall time / its valid knees

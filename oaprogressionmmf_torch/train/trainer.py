@@ -27,6 +27,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from .. import tracing
 from ..data.pipeline import (SequentialSampler, WeightedSampler,
                              make_batch_loader)
 from ..device import resolve_device
@@ -122,10 +123,15 @@ def eval_step(model, preprocess, xs):
     """Preprocess → forward → (float32 logits, probabilities).
 
     ``model`` is in eval mode; ``xs`` are the raw per-modality tensors on
-    its device."""
-    out = model(*preprocess(xs))
-    logits = (out["main"] if isinstance(out, dict) else out).float()
-    return logits, torch.softmax(logits, dim=-1)
+    its device. Spans: ``serve.preprocess``, ``serve.forward`` and
+    ``serve.head`` (the float cast and the softmax)."""
+    with tracing.span("serve.preprocess"):
+        xs = preprocess(xs)
+    with tracing.span("serve.forward"):
+        out = model(*xs)
+    with tracing.span("serve.head"):
+        logits = (out["main"] if isinstance(out, dict) else out).float()
+        return logits, torch.softmax(logits, dim=-1)
 
 
 class TrainRuntime:
@@ -276,36 +282,39 @@ class TrainRuntime:
         The augmentation draws come from ``generator``, or are given as
         ``draws`` (one :class:`~..ops.preproc.AugmentDraws` per modality).
         Returns the loss (under ``dp`` the global batch's) and the float32
-        logits of this rank's rows, both detached."""
-        xs = self.to_device(xs)
-        ys = torch.as_tensor(ys).to(self.device, non_blocking=True)
-        if draws is None:
-            draws = self.sample_draws(generator, xs[0].shape[0])
-        with torch.no_grad():
-            xs = self.preprocess(xs, draws)
-        autocast = (torch.autocast(self.device.type, dtype=self.dtype)
-                    if self.dtype != torch.float32
-                    else contextlib.nullcontext())
-        with autocast:
-            out = self.model(*xs)
-        logits = (out["main"] if isinstance(out, dict) else out).float()
-        if self.dp is None:
-            loss = self.loss_fn(logits, ys)
-            loss.backward()
-        else:
-            loss_rank, loss = self.dp.global_loss(self.loss_fn, logits, ys)
-            loss_rank.backward()
-        # parameters the loss does not reach (the per-MRI FeaTs' heads)
-        # still take the update, as JAX's zero grads and weight decay do
-        for p in self.params:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        if self.dp is not None:
-            self.dp.all_reduce_grads(self.params)
-        set_lr(self.optimizer, self.lr if self.lr_schedule is None
-               else self.lr_schedule(self.step))
-        self.optimizer.step()
-        self.optimizer.zero_grad(set_to_none=True)
+        logits of this rank's rows, both detached. The step is the span
+        ``train.step``, id the step."""
+        with tracing.span("train.step", id=self.step):
+            xs = self.to_device(xs)
+            ys = torch.as_tensor(ys).to(self.device, non_blocking=True)
+            if draws is None:
+                draws = self.sample_draws(generator, xs[0].shape[0])
+            with torch.no_grad():
+                xs = self.preprocess(xs, draws)
+            autocast = (torch.autocast(self.device.type, dtype=self.dtype)
+                        if self.dtype != torch.float32
+                        else contextlib.nullcontext())
+            with autocast:
+                out = self.model(*xs)
+            logits = (out["main"] if isinstance(out, dict) else out).float()
+            if self.dp is None:
+                loss = self.loss_fn(logits, ys)
+                loss.backward()
+            else:
+                loss_rank, loss = self.dp.global_loss(self.loss_fn, logits,
+                                                      ys)
+                loss_rank.backward()
+            # parameters the loss does not reach (the per-MRI FeaTs' heads)
+            # still take the update, as JAX's zero grads and weight decay do
+            for p in self.params:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            if self.dp is not None:
+                self.dp.all_reduce_grads(self.params)
+            set_lr(self.optimizer, self.lr if self.lr_schedule is None
+                   else self.lr_schedule(self.step))
+            self.optimizer.step()
+            self.optimizer.zero_grad(set_to_none=True)
         self.step += 1
         return loss.detach(), logits.detach()
 
@@ -378,8 +387,8 @@ class ProgressionTrainer:
     rank 0 writes ``scalars.jsonl`` and checkpoints.
 
     ``timing`` accumulates seconds: ``loader_wait`` (the loop blocked on
-    the loader's queue), ``train`` and ``val`` (the epochs' loops, waits
-    included), ``ckpt_write``, ``ckpt_read``; and counts ``train_steps``,
+    the loader's queue, each wait also the span ``train.loader_wait``, id
+    the step), ``ckpt_write``, ``ckpt_read``; and counts ``train_steps``,
     ``val_batches`` and ``ckpt_bytes`` (the last file written)."""
 
     def __init__(self, config: dict, fold_idx: int, *, device=None,
@@ -474,9 +483,8 @@ class ProgressionTrainer:
             self._plateau = ReduceLROnPlateau(
                 lr_init=float(train_cfg["optim"]["lr_init"]), **params)
 
-        self.timing = dict(loader_wait=0.0, train=0.0, val=0.0,
-                           ckpt_write=0.0, ckpt_read=0.0, train_steps=0,
-                           val_batches=0, ckpt_bytes=0)
+        self.timing = dict(loader_wait=0.0, ckpt_write=0.0, ckpt_read=0.0,
+                           train_steps=0, val_batches=0, ckpt_bytes=0)
         self._init_state(resume)
 
     # ------------------------------------------------------------------
@@ -542,13 +550,15 @@ class ProgressionTrainer:
         losses = []
         steps = self.loaders["train"].batches_per_epoch()
         debug = self.config["training"].get("debug", False)
-        t_epoch = time.perf_counter()
         batches = self.loaders["train"].epoch(epoch_idx)
         try:
             for step_idx in range(steps):
-                t0 = time.perf_counter()
+                step = self.runtime.step
+                t0 = tracing.now()
                 batch = next(batches)
-                self.timing["loader_wait"] += time.perf_counter() - t0
+                t1 = tracing.now()
+                self.timing["loader_wait"] += (t1 - t0) / 1e9
+                tracing.add("train.loader_wait", t0, t1, id=step)
                 xs = _modality_xs(batch, self.modals)
                 ys = batch["target"][:, 0]
                 gen = self.rng.generator(epoch_idx, step_idx, 0,
@@ -571,7 +581,6 @@ class ProgressionTrainer:
                                loss, epoch_idx * steps + step_idx)
         finally:
             batches.close()
-        self.timing["train"] += time.perf_counter() - t_epoch
         return {"loss_prog": float(np.mean(losses)) if losses else np.nan}
 
     def val_epoch(self, epoch_idx: int) -> dict:
@@ -583,7 +592,6 @@ class ProgressionTrainer:
         autocast = (torch.autocast(self.device.type, dtype=rt.dtype)
                     if rt.dtype != torch.float32
                     else contextlib.nullcontext())
-        t_epoch = time.perf_counter()
         rt.model.eval()
         try:
             with torch.inference_mode():
@@ -605,7 +613,6 @@ class ProgressionTrainer:
                                    loss, epoch_idx * steps + step_idx)
         finally:
             rt.model.train()
-        self.timing["val"] += time.perf_counter() - t_epoch
         if self.dp is not None:
             # every rank's shard, in rank order: the metrics of the whole
             # validation set, equal on every rank

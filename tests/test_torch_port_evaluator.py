@@ -25,6 +25,7 @@ reference.
 """
 
 import copy
+import json
 import pickle
 import subprocess
 import sys
@@ -368,7 +369,10 @@ def test_profile_compute_counts_matmuls_and_convs(experiment):
 
 def test_profile_time_and_trace(experiment):
     """profile=time: warm-up excluded, mean/p50/p95 per knee; trace: a
-    Chrome trace of the epoch under logs_eval/<cohort>/torch_trace."""
+    Chrome trace of the epoch under logs_eval/<cohort>/torch_trace, with
+    the program's spans in the rows of their threads: each batch's
+    request, whose forward encloses its operators, and the loader's
+    batches on the producer thread."""
     tmp, config = experiment
     config = copy.deepcopy(config.to_dict())
     for profile in ("time", "trace"):
@@ -385,6 +389,18 @@ def test_profile_time_and_trace(experiment):
         else:
             traces = list((ev.path_logs / "torch_trace").glob("*.json"))
             assert traces and traces[0].stat().st_size > 0
+            events = json.loads(traces[0].read_text())["traceEvents"]
+            spans = [e for e in events if e.get("cat") == "program_span"]
+            requests = [e for e in spans if e["name"] == "serve.request"]
+            assert len(requests) == len(ev.trainer.loaders["test"])
+            forward = next(e for e in spans if e["name"] == "serve.forward")
+            assert any(e["name"].startswith("aten::")
+                       and e.get("tid") == forward["tid"]
+                       and forward["ts"] <= e["ts"] <= forward["ts"]
+                       + forward["dur"] for e in events if "name" in e)
+            batches = [e for e in spans if e["name"] == "loader.batch"]
+            assert batches and all(e["tid"] != forward["tid"]
+                                   for e in batches)
 
 
 def _raw_with_times(n_folds, n=6):
