@@ -45,8 +45,9 @@ Phases (any failure exits non-zero; nothing is caught):
      bench.py's config: random weights from bench_param_spec.json (seeded,
      bench.py's recipe), carried across with from_jax_variables and loaded
      with strict=True; a few requests of raw batch-4 inputs through
-     make_predictor in bfloat16 with every launch count set to 0 just
-     before and read just after (12 K1 and 3 K4 launches per request);
+     make_predictor in bfloat16 (replays of its CUDA graph after the
+     warm-up), then as many under a profiler, its kernels counted on the
+     device by name (12 K1 and 3 K4 launches per request);
      probabilities checked; the bf16 run's tokens into the final FeaT, its
      states and its logits compared with a float32 (no TF32) run of the
      port on the same inputs, beside how far knees and slices differ in the
@@ -56,19 +57,32 @@ Phases (any failure exits non-zero; nothing is caught):
      export_serving_bundle calibrates on the card with one batch and
      writes an int8-all bundle (and an int8 one) in the JAX layout to a
      temporary directory, load_serving_bundle reads it back, and a few
-     batch-4 requests run with every launch count set to 0 just before and
-     read just after (159 K5, 12 K1 and 3 K4 per request in both modes; the
+     batch-4 requests run, then as many with their kernels counted on the
+     device (159 K5, 12 K1 and 3 K4 per request in both modes; the
      int8 mode's FeaTs stay bf16); probabilities finite; the final FeaT's
      tokens and states, less their mean over knees, within CENTRED_RTOL of
      the bf16 request's input-driven part; ms per request, knees/s, device
      busy time and idle share beside the bf16 request, with a profiler
      breakdown;
+ 4g. the predictor's CUDA graphs: MR1CnnTrf in bf16 at batch 1 and the
+     flagship int8-all (calibrated in memory on one batch) at batch 16,
+     each over GRAPH_INPUTS distinct inputs answered eagerly by eval_step
+     first; then through one predictor the first two inputs (eager, then
+     captured under a profiler) and all of them again (replayed): every
+     answer equal to the eager one bit for bit, every earlier answer
+     still equal after each call; the wrappers' launch counters moved by
+     the eager call's launches (MR1 K1 4, K4 1; the flagship K1 12, K4 3,
+     K5 159), twice that by the capturing call and not by a replay; on
+     the device, by kernel name in a profiler trace, the capturing call
+     and each of GRAPH_REPLAYS_TRACED replays launch the eager call's
+     kernels; ``counts`` eager 1, captured 1, the rest replayed; ms per
+     request eager and replayed;
  4b. the five other families at the full width of their YAML configs
      (XR 700² → ResNeXt50-32x4d at 350², or ResNet50 for XR1Cnn; DESS
      320²×128 → 64 slices of 160²; COR IW TSE 320²×32 → 32 slices) with
      random weights from a seeded host recipe, loaded with strict=True
      through make_predictor: batch-4 requests in bf16 with their exact K4
-     and K1 launch counts, and logits and probabilities against a float32
+     and K1 launch counts on the device, and logits and probabilities against a float32
      run; then MR1CnnTrf with each extra encoder (squeezenet1_0, vgg16,
      densenet161, inception_v3) as its fe.arch at batch 2;
  3b. the flash backward kernels K2 (dq) and K3 (dk, dv) against their
@@ -122,7 +136,11 @@ Phases (any failure exits non-zero; nothing is caught):
      calibration) and one test batch served from its bundle; every launch
      count set to 0 just before each run and read just after, and held
      exactly to the count its forwards give (12 K1 and 3 K4 a forward,
-     159 K5 an int8-all forward); the pickles' names and keys as the JAX
+     159 K5 an int8-all forward; a no-op global forward hook keeps these
+     runs' predictors eager, so the wrappers see every forward); the eval
+     run once more without the hook, as users run it, each fold's
+     predictor replaying its CUDA graph, its answers equal bit for bit to
+     the eager run's; the pickles' names and keys as the JAX
      package writes them; the ensemble equal to the double softmax of the
      fold-wise pickle; each fold's first batch equal to make_predictor on
      its weights (bf16 and int8-all on the evaluator's calibration); the
@@ -201,6 +219,7 @@ import gc
 import importlib
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -402,6 +421,15 @@ K5_DESIGN = ("tensor cores: wgmma m64nNk32 s8 (N = 64 or 128), 128 pixels a "
              "ReLU and requantize on 16-channel runs through shared memory "
              "before the one store")
 INT8_MODES = ("int8-all", "int8")
+# phase 4g: distinct inputs per predictor, and the cases: (label, family
+# config or None for the flagship, quant, batch, launches per request)
+GRAPH_INPUTS = 8
+GRAPH_REPLAYS_TRACED = 3
+GRAPH_CASES = (("MR1CnnTrf bf16", "MR1CnnTrf", None, 1,
+                {"K1": 4, "K2": 0, "K3": 0, "K4": 1, "K5": 0}),
+               ("flagship int8-all", None, "int8-all", 16,
+                {"K1": 12, "K2": 0, "K3": 0, "K4": 3,
+                 "K5": K5_PER_REQUEST}))
 # DenseNet-161 FeaT heads (2208 / 8), the width K2/K3 now pad to 288; its
 # MR1CnnTrf FeaT holds 64 slice tokens and a CLS token
 PAD_D = 276
@@ -1560,7 +1588,6 @@ def device_breakdown(fn, latency_ms: float, what: str = "request") -> None:
 
 
 def phase_slice(card: str, sd: dict):
-    from oaprogressionmmf_torch.ops.flash_attention import flash_attention
     from oaprogressionmmf_torch.serving import make_predictor
 
     xs = raw_inputs()
@@ -1576,22 +1603,21 @@ def phase_slice(card: str, sd: dict):
         predictor(xs).cpu()
     torch.cuda.reset_peak_memory_stats()
 
-    reset_launch_counts()
     latencies = []
     for _ in range(REQUESTS):
         t = time.perf_counter()
         probs = predictor(xs).cpu()
         latencies.append(time.perf_counter() - t)
-    launches = flash_attention.launches
-    stem_launches = stem_module().fused_bn_relu_pool.launches
-    if int8_module().int8_conv2d.launches:
-        raise SystemExit("the bf16 request launched the int8 conv K5")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    moved = device_launches(lambda: predictor(xs).cpu(), REQUESTS)
+    launches, stem_launches = moved["K1"], moved["K4"]
+    if moved["K5"]:
+        raise SystemExit("the bf16 request launched the int8 conv K5")
 
-    log(f"[slice] {REQUESTS} requests of batch {BATCH}: flash launches "
-        f"{launches} ({launches / REQUESTS:g} per forward), fused stem "
-        f"launches {stem_launches} ({stem_launches / REQUESTS:g} per "
-        f"forward)")
+    log(f"[slice] {REQUESTS} requests of batch {BATCH} (replayed: "
+        f"{predictor.counts}), on the device: flash launches {launches} "
+        f"({launches / REQUESTS:g} per forward), fused stem launches "
+        f"{stem_launches} ({stem_launches / REQUESTS:g} per forward)")
     if launches != 12 * REQUESTS or stem_launches != 3 * REQUESTS:
         raise SystemExit(f"expected 12 flash and 3 fused stem launches per "
                          f"forward, got {launches} and {stem_launches} over "
@@ -1724,18 +1750,16 @@ def phase_int8_serving(card: str, sd: dict, bf16: dict) -> dict:
                 f"loaded back strictly in {t_load:.1f} s")
             for _ in range(WARMUP_REQUESTS):
                 predictor(xs).cpu()
-            reset_launch_counts()
             latencies = []
             for _ in range(REQUESTS):
                 t = time.perf_counter()
                 probs = predictor(xs).cpu()
                 latencies.append(time.perf_counter() - t)
-            counts = {"K5": int8_module().int8_conv2d.launches,
-                      "K1": flash_module().flash_attention.launches,
-                      "K4": stem_module().fused_bn_relu_pool.launches}
+            moved = device_launches(lambda: predictor(xs).cpu(), REQUESTS)
+            counts = {k: moved[k] for k in ("K5", "K1", "K4")}
             want = {"K5": K5_PER_REQUEST, "K1": 12, "K4": 3}
-            log(f"[int8] {quant}: {REQUESTS} requests of batch {BATCH}: "
-                f"launches per request "
+            log(f"[int8] {quant}: {REQUESTS} requests of batch {BATCH} "
+                f"({predictor.counts}): launches per request on the device "
                 f"{ {k: v / REQUESTS for k, v in counts.items()} } (want "
                 f"{want})")
             if any(counts[k] != want[k] * REQUESTS for k in want):
@@ -1763,6 +1787,136 @@ def phase_int8_serving(card: str, sd: dict, bf16: dict) -> dict:
             del predictor
             gc.collect()
             torch.cuda.empty_cache()
+    return results
+
+
+def graph_predictor(family, quant, sd: dict):
+    """Phase 4g's predictor, in bf16: a family at full width with its own
+    weights, or the flagship on ``sd`` calibrated in memory on one batch
+    of 16 for ``quant``."""
+    from oaprogressionmmf_torch.serving import (calibrate_quant_acts,
+                                                make_predictor,
+                                                quantized_model_config)
+    if family is not None:
+        cfg = family_cfg(family)
+        return cfg, make_predictor(cfg, synth_family_state_dict(cfg),
+                                   [FAMILY_MODALS[b]
+                                    for b in FAMILIES[family][0]],
+                                   cfg["downscale"], dtype=torch.bfloat16)
+    calib = make_predictor(
+        quantized_model_config(MODEL_CFG, "calib", include_agg=True), sd,
+        MODALS, MODEL_CFG["downscale"], dtype=torch.bfloat16)
+    acts = calibrate_quant_acts(calib,
+                                [graph_inputs(MODEL_CFG, 16, -1)])
+    del calib
+    torch.cuda.empty_cache()
+    return MODEL_CFG, make_predictor(
+        quantized_model_config(MODEL_CFG, quant), sd, MODALS,
+        MODEL_CFG["downscale"], dtype=torch.bfloat16, quant_acts=acts)
+
+
+def graph_inputs(cfg: dict, batch: int, i: int) -> tuple:
+    """Input ``i`` of phase 4g, on a seed of its own: uint8 X-rays and
+    DESS volumes, T2 maps in [0, 0.1) s and clinical values in [0, 1) as
+    float32."""
+    rng = np.random.default_rng(200 + i)
+    xs = [rng.integers(0, 256, (batch, 1, *size), dtype=np.uint8)
+          for size in cfg["input_size"]]
+    if cfg is MODEL_CFG:
+        xs[2] = rng.random(xs[2].shape, dtype=np.float32) * 0.1
+        xs[3] = rng.random((batch, 1, 9), dtype=np.float32)
+    return tuple(xs)
+
+
+def phase_graph(card: str, sd: dict) -> dict:
+    """Phase 4g: the predictor's CUDA graphs against its eager path."""
+    from oaprogressionmmf_torch.train.trainer import eval_step
+    zero = dict.fromkeys(KERNEL_IDS.values(), 0)
+    results = {}
+    for label, family, quant, batch, want in GRAPH_CASES:
+        cfg, predictor = graph_predictor(family, quant, sd)
+        knees = [graph_inputs(cfg, batch, i) for i in range(GRAPH_INPUTS)]
+
+        def eager(xs):
+            return eval_step(predictor.model, predictor.preprocess,
+                             predictor.to_device(xs))
+
+        eager(knees[0])[1].cpu()                  # builds, cuDNN's choices
+        wants, eager_ms = [], []
+        for xs in knees:
+            before = kernel_launches()
+            t = time.perf_counter()
+            logits, probs = eager(xs)
+            probs = probs.cpu()
+            eager_ms.append((time.perf_counter() - t) * 1e3)
+            moved = {k: v - before[k] for k, v in kernel_launches().items()}
+            if moved != want:
+                raise SystemExit(f"[graph] {label}: the eager call launched "
+                                 f"{moved}, want {want}")
+            wants.append((logits.cpu(), probs))
+
+        held, graph_ms = [], []
+
+        def call(i, j):
+            """Call ``i`` of the predictor on input ``j``; every answer held
+            so far still equal to its eager one."""
+            before = kernel_launches()
+            t = time.perf_counter()
+            got = predictor(knees[j])
+            got.cpu()
+            graph_ms.append((time.perf_counter() - t) * 1e3)
+            held.append((j, got))
+            bad = [k for k, (jj, p) in enumerate(held)
+                   if not torch.equal(p.cpu(), wants[jj][1])]
+            if bad:
+                raise SystemExit(f"[graph] {label}: after call {i} the "
+                                 f"answers of calls {bad} differ from the "
+                                 f"eager ones")
+            return {k: v - before[k] for k, v in kernel_launches().items()}
+
+        # the wrappers count what Python issues: the eager call's launches,
+        # the capturing call's twice (its eager run, then the capture's
+        # record), a replay's none
+        wrapped = [call(0, 0)]
+        on_device = device_launches(lambda: wrapped.append(call(1, 1)))
+        wrapped += [call(i + 2, j) for i, j in enumerate(range(len(knees)))]
+        twice = {k: 2 * v for k, v in want.items()}
+        if wrapped != [want, twice] + [zero] * len(knees):
+            raise SystemExit(f"[graph] {label}: the wrappers counted "
+                             f"{wrapped}, want {want}, {twice}, then none")
+        # on the card: the capturing call (under a profiler) launches its
+        # eager run's kernels, a replay the eager call's
+        if on_device != want:
+            raise SystemExit(f"[graph] {label}: the capturing call launched "
+                             f"{on_device} on the device, want {want}")
+        replays = device_launches(
+            lambda: predictor(knees[-1]).cpu(), GRAPH_REPLAYS_TRACED)
+        per_call = {k: v * GRAPH_REPLAYS_TRACED for k, v in want.items()}
+        if replays != per_call:
+            raise SystemExit(f"[graph] {label}: {GRAPH_REPLAYS_TRACED} "
+                             f"replays launched {replays} on the device, "
+                             f"want {per_call}")
+        if not torch.equal(predictor.logits(knees[0]).cpu(), wants[0][0]):
+            raise SystemExit(f"[graph] {label}: replayed logits differ")
+        n = len(knees) + GRAPH_REPLAYS_TRACED + 1
+        if predictor.counts != {"eager": 1, "captured": 1, "replayed": n}:
+            raise SystemExit(f"[graph] {label}: counts {predictor.counts}")
+        replay_ms = graph_ms[2:]
+        results[label] = dict(eager_ms=float(np.median(eager_ms)),
+                              replay_ms=float(np.median(replay_ms)),
+                              counts=predictor.counts)
+        log(f"[graph] {label}: batch {batch}, {len(knees)} distinct inputs; "
+            f"replays equal the eager answers bit for bit and held answers "
+            f"stay; launches on the device per call {want} (the capturing "
+            f"call, under a profiler, and {GRAPH_REPLAYS_TRACED} replays); "
+            f"counts {predictor.counts}; ms per request (host arrays in, "
+            f"probabilities on the host) eager median "
+            f"{np.median(eager_ms):.3f} (min {min(eager_ms):.3f}), replayed "
+            f"median {np.median(replay_ms):.3f} (min {min(replay_ms):.3f})  "
+            f"[{card}]")
+        del predictor, held, wants
+        gc.collect()
+        torch.cuda.empty_cache()
     return results
 
 
@@ -1846,14 +2000,13 @@ def run_family(card: str, cfg: dict, modals, batch: int, requests: int,
     predictor = make_predictor(cfg, sd, modals, cfg["downscale"],
                                dtype=torch.bfloat16)
     predictor(xs).cpu()                       # warm-up
-    reset_launch_counts()
     latencies = []
     for _ in range(requests):
         t = time.perf_counter()
         probs = predictor(xs).cpu()
         latencies.append(time.perf_counter() - t)
-    k4 = stem_module().fused_bn_relu_pool.launches
-    k1 = flash_module().flash_attention.launches
+    moved = device_launches(lambda: predictor(xs).cpu(), requests)
+    k4, k1 = moved["K4"], moved["K1"]
     logits16 = predictor.logits(xs)
     del predictor
     torch.cuda.empty_cache()
@@ -1909,6 +2062,35 @@ def kernel_launches() -> dict:
     return {"K1": k1, "K2": k2, "K3": k3,
             "K4": stem_module().fused_bn_relu_pool.launches,
             "K5": int8_module().int8_conv2d.launches}
+
+
+# K1-K5 by kernel name in a device trace: the port's kernels live in an
+# anonymous namespace, PyTorch's own flash kernels do not
+DEVICE_KERNELS = re.compile(r"\(anonymous namespace\)::(?:\w+::)*"
+                            r"(flash_fwd|flash_bwd_dq|flash_bwd_dkv|"
+                            r"bn_relu_pool|int8_conv)_\w+\s*[<(]")
+KERNEL_IDS = {"flash_fwd": "K1", "flash_bwd_dq": "K2", "flash_bwd_dkv": "K3",
+              "bn_relu_pool": "K4", "int8_conv": "K5"}
+
+
+def device_launches(fn, calls: int = 1) -> dict:
+    """K1-K5's launches on the device over ``calls`` calls of ``fn``,
+    counted by kernel name in a profiler trace of the card: a replayed
+    CUDA graph runs no Python, so the wrappers' counters miss it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    counts = dict.fromkeys(KERNEL_IDS.values(), 0)
+    for e in prof.key_averages():
+        m = DEVICE_KERNELS.search(e.key)
+        if m:
+            counts[KERNEL_IDS[m.group(1)]] += e.count
+    return counts
 
 
 def reset_launch_counts() -> None:
@@ -2111,7 +2293,10 @@ def kernel_inputs(tag=None):
     ``tag``, a one-element list, adds its current value to each key (phase
     7 marks full and padded batches); with it K4 too keeps images 0 and
     N - 1 and its output's, so that a timed batch copies a few MB, not
-    the stems' GB. Yields {(kernel, shape, types, ...): inputs}."""
+    the stems' GB. A global forward pre-hook, a no-op, is registered
+    meanwhile: a Predictor call that a hook must see runs eagerly (a
+    replayed CUDA graph runs no Python), so every forward passes through
+    the wrappers. Yields {(kernel, shape, types, ...): inputs}."""
     from oaprogressionmmf_torch.models import feat, resnet
     fa, fs, ic = flash_module(), stem_module(), int8_module()
     real = (feat.flash_attention, resnet.stem_epilogue,
@@ -2188,9 +2373,12 @@ def kernel_inputs(tag=None):
 
     (feat.flash_attention, resnet.stem_epilogue, resnet.fused_bn_relu_pool,
      resnet.int8_conv2d) = flash, stem, pool, conv
+    hook = torch.nn.modules.module.register_module_forward_pre_hook(
+        lambda module, args: None)
     try:
         yield seen
     finally:
+        hook.remove()
         (feat.flash_attention, resnet.stem_epilogue,
          resnet.fused_bn_relu_pool, resnet.int8_conv2d) = real
 
@@ -2525,6 +2713,49 @@ def explain_recomputed(predictor, xs, ys) -> tuple:
         return attrs.cpu().numpy(), out[0].abs().max().item()
 
 
+def users_eval_run(cfg: dict, datasets: dict, logs: Path,
+                   pickles: dict) -> list:
+    """Phase 7's eval run once more as users run it, without
+    ``kernel_inputs``' hook, so that each fold's predictor replays its CUDA
+    graph from its third call (explain calls the model itself and stays
+    eager): every fold-wise answer equal bit for bit to the eager run's in
+    ``pickles``. Returns the predictors' counts."""
+    import pickle
+
+    from oaprogressionmmf_torch.run import eval_prog_fus
+    from oaprogressionmmf_torch.train import evaluator as ev_module
+
+    real, made = ev_module.make_predictor, []
+
+    def kept(*args, **kwargs):
+        made.append(real(*args, **kwargs))
+        return made[-1]
+
+    ev_module.make_predictor = kept
+    try:
+        eval_prog_fus.run(copy.deepcopy(cfg), datasets=datasets)
+    finally:
+        ev_module.make_predictor = real
+    got = pickle.loads((logs / "eval_fus_raw_foldw.pkl").read_bytes())
+    want = pickles["eval"]["eval_fus_raw_foldw"]
+    bad = [(k, key) for k in range(EVAL_FOLDS)
+           for key in ("predict", "predict_proba")
+           if not np.array_equal(np.asarray(got[k][key]),
+                                 np.asarray(want[k][key]))]
+    counts = [p.counts for p in made]
+    log(f"[eval] eval as users run it (predictors' counts {counts}): "
+        f"predict and predict_proba of both folds equal to the eager "
+        f"run's bit for bit: {not bad}")
+    if bad or not all(c["replayed"] for c in counts):
+        raise SystemExit(f"phase 7 eval without the hook: answers {bad} "
+                         f"differ from the eager run's, or a predictor "
+                         f"never replayed: {counts}")
+    del made
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
 def phase_eval(card: str, root: str) -> tuple:
     """Fold evaluation of phase 6's two folds at full width (phase 7):
     eval_prog_fus.run in bf16 with profile=time, with regime=explain and
@@ -2595,6 +2826,7 @@ def phase_eval(card: str, root: str) -> tuple:
                                MODALS)
             served = bundle(xs1).cpu()
             counts["export"] = kernel_counts()
+    users_eval_run(cfg, datasets, logs, pickles)
     bundle_bytes = sum(f.stat().st_size for f in paths[0].iterdir())
     del bundle
     gc.collect()
@@ -3607,6 +3839,8 @@ def main() -> int:
     mark("4c")
     gc.collect()
     torch.cuda.empty_cache()
+    graph = phase_graph(card, sd)
+    mark("4g")
     family_ms = phase_families(card)
     mark("4b")
     gc.collect()
@@ -3713,6 +3947,7 @@ def main() -> int:
                             **k5["subset"]),
         per_shape=k5["per_shape"]))
     log(f"[int8] ms per request: {json.dumps(int8)}")
+    log(f"[graph] {json.dumps(graph)}")
     log(f"[family] ms per request: {json.dumps(family_ms)}")
     log(f"[prep] {json.dumps(prep)}")
     log(f"[parallel] {json.dumps(parallel)}")

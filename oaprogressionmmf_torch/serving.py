@@ -22,14 +22,18 @@ from __future__ import annotations
 import copy
 import itertools
 import json
+import threading
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
+from torch.nn.modules import module as nn_module
+from torch.utils._python_dispatch import _get_current_dispatch_mode
 
 from . import tracing
 from .device import resolve_device
 from .models import dict_models
-from .ops.quant import cast_model, prepare_int8
+from .ops.quant import cast_model, is_calib, prepare_int8
 from .train.trainer import eval_step, make_preprocess_fn
 from .utils.convert import (from_jax_variables, load_quant_acts,
                             quant_acts_tree, to_jax_variables)
@@ -39,7 +43,38 @@ BUNDLE_FORMAT = "oaprog-serving-bundle"
 BUNDLE_VERSION = 1
 QUANT_MODES = ("none", "int8", "int8-all")
 DTYPE_NAMES = {torch.bfloat16: "bfloat16", torch.float32: "float32"}
+# captured input signatures per predictor: bounds the graphs' private
+# memory pools
+MAX_GRAPHS = 4
 _requests = itertools.count(1)
+
+
+def engagement(*, cuda: bool, seen: bool, captured: bool, graphs: int,
+               calibrating: bool = False, intercepted: bool = False) -> str:
+    """How a :class:`Predictor` call runs: "eager", "capture" or "replay".
+
+    ``cuda``: the predictor's device is a GPU; ``seen``: an earlier call
+    had this input signature; ``captured``: it has a graph; ``graphs``:
+    the predictor's graphs. Eager whatever the rest: a model with an int8
+    site in calibration mode (its statistics are read back on the host),
+    and Python that must see every call (``intercepted``: a
+    TorchDispatchMode such as ``FlopCounterMode``, or a forward hook). A
+    signature seen once is captured, unless ``MAX_GRAPHS`` are held."""
+    if not cuda or calibrating or intercepted:
+        return "eager"
+    if captured:
+        return "replay"
+    if not seen or graphs >= MAX_GRAPHS:
+        return "eager"
+    return "capture"
+
+
+class _Graph(NamedTuple):
+    """One input signature's captured :func:`eval_step`."""
+
+    graph: torch.cuda.CUDAGraph
+    xs: tuple           # static inputs, one per modality
+    out: tuple          # static (float32 logits, probabilities)
 
 
 class Predictor:
@@ -48,16 +83,48 @@ class Predictor:
     ``meta`` is the bundle's meta for a predictor from
     :func:`load_serving_bundle`, else None.
 
+    On a GPU a call's device work (preprocessing, forward, softmax) is
+    captured as one CUDA graph per input signature (each modality's shape
+    and dtype) and replayed, so the host issues one launch where the
+    eager call issues hundreds: the first call of a signature runs
+    eagerly, the second runs eagerly on the capturing stream and captures,
+    later ones copy the inputs into the graph's static inputs and replay it
+    (:func:`engagement` says when a call stays eager). A replay returns
+    fresh tensors. It runs no Python per kernel, so the ops' launch
+    counters (``flash_attention.launches`` and the like) count the eager
+    calls' launches and a capturing call's twice (its eager run and the
+    launches the capture records); a replay's launches show only in a
+    device trace. ``counts`` holds the calls that ran "eager", were
+    "captured" and "replayed".
+
     A call is the span ``serve.request`` (id: the process's request
     count), which holds ``serve.upload`` and the spans of
-    :func:`~.train.trainer.eval_step`; it ends once the work is issued,
-    before the device is done."""
+    :func:`~.train.trainer.eval_step` (a capturing call: those of its
+    eager run and of the capture), or on a replay ``serve.forward`` around
+    the replay; it ends once the work is issued, before the device is
+    done."""
 
     def __init__(self, model, preprocess, device: torch.device, meta=None):
         self.model = model
         self.preprocess = preprocess
         self.device = device
         self.meta = meta
+        self.counts = {"eager": 0, "captured": 0, "replayed": 0}
+        self._seen: set = set()
+        self._graphs: dict = {}
+        self._stream = None
+        self._lock = threading.Lock()   # the static buffers are shared
+        self._calibrating = any(
+            isinstance(q, str) and is_calib(q)
+            for q in (getattr(m, "quant", None) for m in model.modules()))
+        self._hooks = (nn_module._global_forward_hooks,
+                       nn_module._global_forward_pre_hooks) + tuple(
+            d for m in model.modules()
+            for d in (m._forward_hooks, m._forward_pre_hooks))
+
+    def _intercepted(self) -> bool:
+        """Python must see this call: a dispatch mode or a forward hook."""
+        return _get_current_dispatch_mode() is not None or any(self._hooks)
 
     def to_device(self, xs) -> tuple:
         with tracing.span("serve.upload"):
@@ -66,15 +133,60 @@ class Predictor:
                          for x in xs)
 
     def __call__(self, xs) -> torch.Tensor:
-        with tracing.span("serve.request", id=next(_requests)):
-            return eval_step(self.model, self.preprocess,
-                             self.to_device(xs))[1]
+        return self._run(xs)[1]
 
     def logits(self, xs) -> torch.Tensor:
         """The float32 logits behind :meth:`__call__`'s probabilities."""
+        return self._run(xs)[0]
+
+    def _run(self, xs) -> tuple:
         with tracing.span("serve.request", id=next(_requests)):
-            return eval_step(self.model, self.preprocess,
-                             self.to_device(xs))[0]
+            ts = tuple(torch.as_tensor(x) for x in xs)
+            sig = tuple((tuple(t.shape), t.dtype) for t in ts)
+            with self._lock:
+                path = engagement(
+                    cuda=self.device.type == "cuda",
+                    seen=sig in self._seen, captured=sig in self._graphs,
+                    graphs=len(self._graphs), calibrating=self._calibrating,
+                    intercepted=self._intercepted())
+                if path == "replay":
+                    return self._replay(self._graphs[sig], ts)
+                if path == "capture":
+                    return self._capture(sig, ts)
+                self._seen.add(sig)
+                self.counts["eager"] += 1
+            return eval_step(self.model, self.preprocess, self.to_device(ts))
+
+    def _capture(self, sig, ts) -> tuple:
+        """Run :func:`eval_step` eagerly on a side stream (the answer), then
+        capture it there on static inputs holding ``ts``."""
+        with tracing.span("serve.upload"):
+            xs = tuple(torch.empty(t.shape, dtype=t.dtype,
+                                   device=self.device).copy_(
+                t, non_blocking=True) for t in ts)
+        with torch.cuda.device(self.device):
+            if self._stream is None:
+                self._stream = torch.cuda.Stream()
+            self._stream.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(self._stream):
+                answer = eval_step(self.model, self.preprocess, xs)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, stream=self._stream,
+                                  capture_error_mode="thread_local"):
+                out = eval_step(self.model, self.preprocess, xs)
+        self._graphs[sig] = _Graph(graph, xs, out)
+        self.counts["captured"] += 1
+        return answer
+
+    def _replay(self, g: _Graph, ts) -> tuple:
+        with tracing.span("serve.upload"):
+            for x, t in zip(g.xs, ts):
+                x.copy_(t, non_blocking=True)
+        with tracing.span("serve.forward"):
+            g.graph.replay()
+            self.counts["replayed"] += 1
+            with torch.inference_mode():
+                return tuple(t.clone() for t in g.out)
 
 
 def _materialize_buffers(model) -> None:

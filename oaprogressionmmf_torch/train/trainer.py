@@ -124,7 +124,9 @@ def eval_step(model, preprocess, xs):
 
     ``model`` is in eval mode; ``xs`` are the raw per-modality tensors on
     its device. Spans: ``serve.preprocess``, ``serve.forward`` and
-    ``serve.head`` (the float cast and the softmax)."""
+    ``serve.head`` (the float cast and the softmax). It syncs with nothing
+    on the host, so :class:`~..serving.Predictor` captures it as one CUDA
+    graph."""
     with tracing.span("serve.preprocess"):
         xs = preprocess(xs)
     with tracing.span("serve.forward"):
