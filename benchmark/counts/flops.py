@@ -5,9 +5,23 @@ that the model's equations hold (BatchNorm, activations, pooling and
 softmax are not counted). The counts are the benchmark's own yardstick:
 they follow the configuration, not the program, so a later change to the
 program cannot move them.
+
+A feature extractor that ``ARCHS`` lacks is counted by ``fe/<arch>.py``
+beside this file: ``convs(size)`` (every convolution of one grayscale
+``size``² image, as :func:`resnet_convs` lists them) and ``WIDTH`` (its
+output width). A family outside ``FAMILIES`` is counted by
+``families/<name>.py``: ``forward_flops(cfg)``, by the kinds that
+:func:`forward_flops` gives.
 """
 
 from __future__ import annotations
+
+import functools
+from pathlib import Path
+
+from benchmark.harness import load_module
+
+HERE = Path(__file__).resolve().parent
 
 ARCHS = {
     "resnet18": ("basic", (2, 2, 2, 2), 1, 64),
@@ -15,6 +29,15 @@ ARCHS = {
     "resnext50_32x4d": ("bottleneck", (3, 4, 6, 3), 32, 4),
 }
 OUT_CH = {"resnet18": 512, "resnet50": 2048, "resnext50_32x4d": 2048}
+# the families counted here; any other is found by name
+FAMILIES = ("MR1CnnTrf", "XR1MR2C1CnnTrf")
+
+
+@functools.cache
+def by_name(kind: str, name: str):
+    """The count ``<kind>/<name>.py`` beside this file: a feature
+    extractor (``fe``) or a family (``families``) counted outside it."""
+    return load_module(HERE / kind / f"{name}.py")
 
 
 def conv_out(size: int, k: int, stride: int, pad: int) -> int:
@@ -59,8 +82,17 @@ def conv_flops(c) -> float:
     return 2.0 * o * o * cout * cin_g * k * k
 
 
-def resnet_flops(arch: str, size: int) -> float:
-    return sum(conv_flops(c) for c in resnet_convs(arch, size))
+def fe_convs(arch: str, size: int) -> list:
+    return (resnet_convs(arch, size) if arch in ARCHS
+            else by_name("fe", arch).convs(size))
+
+
+def fe_width(arch: str) -> int:
+    return OUT_CH[arch] if arch in OUT_CH else by_name("fe", arch).WIDTH
+
+
+def fe_flops(arch: str, size: int) -> float:
+    return sum(conv_flops(c) for c in fe_convs(arch, size))
 
 
 def feat_flops(tokens: int, dim: int, depth: int, mlp: int, classes: int,
@@ -83,6 +115,8 @@ def forward_flops(cfg: dict) -> dict:
     """One knee's forward, by kind: ``conv`` (the CNN branches), ``dense``
     (the FeaTs' linear layers), ``attention`` (their score and weighted-sum
     products) and ``clin`` (the clinical token's linear layer)."""
+    if cfg["name"] not in FAMILIES:
+        return by_name("families", cfg["name"]).forward_flops(cfg)
     agg = cfg["agg"]
     depth, mlp = int(agg["depth"]), int(agg["mlp_dim"])
     classes = int(cfg["output_channels"])
@@ -99,18 +133,16 @@ def forward_flops(cfg: dict) -> dict:
         r, c, s = _scaled(cfg["input_size"][0], ds[0])
         if r != c:
             raise ValueError("square slices only")
-        out["conv"] = s * resnet_flops(arch, r)
-        add_feat(s, OUT_CH[arch], True)
+        out["conv"] = s * fe_flops(arch, r)
+        add_feat(s, fe_width(arch), True)
         return out
-    if cfg["name"] != "XR1MR2C1CnnTrf":
-        raise ValueError(f"no count for {cfg['name']}")
     xr, mr = cfg["fe"]["xr"]["arch"], cfg["fe"]["mr"]["arch"]
-    dim = OUT_CH[mr]
+    dim = fe_width(mr)
     x_r, _ = _scaled(cfg["input_size"][0], ds[0])
     d_r, _, d_s = _scaled(cfg["input_size"][1], ds[1])
     t_r, _, t_s = _scaled(cfg["input_size"][2], ds[2])
-    out["conv"] = (resnet_flops(xr, x_r) + d_s * resnet_flops(mr, d_r)
-                   + t_s * resnet_flops(mr, t_r))
+    out["conv"] = (fe_flops(xr, x_r) + d_s * fe_flops(mr, d_r)
+                   + t_s * fe_flops(mr, t_r))
     add_feat(d_s, dim, False)
     add_feat(t_s, dim, False)
     ns = agg["num_slices"]

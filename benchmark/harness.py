@@ -8,6 +8,18 @@ drives (``drivers/<entry>.py``), its traffic and its limits. Each
 per-layer metric ``<metric>`` that ``BENCHMARK.json`` lists for the cell is
 read by ``metrics/<metric>.py``. Nothing here names a cell, a
 configuration or a metric.
+
+What a configuration's model is made of is found by name too. Its plain
+reference is ``reference/nets.py`` where that defines the model; a feature
+extractor ``<arch>`` that it lacks is ``reference/fe/<arch>.py``, a family
+``<Name>`` that it lacks ``reference/families/<Name>.py``. Its operation
+counts are ``counts/flops.py``, or ``counts/fe/<arch>.py`` and
+``counts/families/<Name>.py`` in the same way. Its model at a size that a
+CPU test can hold is ``tests/sizes/<config>.json``, which the tests of the
+reference against the program and of the counts against
+``FlopCounterMode`` run. A new configuration, and a new per-layer metric
+with its reader and its test, come as new files and entries in
+``BENCHMARK.json``, with no edit to a file that is here.
 """
 
 from __future__ import annotations
@@ -35,7 +47,8 @@ def load_json(path: Path) -> dict:
         return json.load(f)
 
 
-def _module(path: Path):
+def load_module(path: Path):
+    """The module in the file ``path``, loaded by its path."""
     if not path.is_file():
         raise FileNotFoundError(f"{path} is missing")
     spec = importlib.util.spec_from_file_location(
@@ -59,11 +72,11 @@ def cell(name: str, here: Path = HERE) -> dict:
 
 
 def driver(entry: str, here: Path = HERE):
-    return _module(here / "drivers" / f"{entry}.py")
+    return load_module(here / "drivers" / f"{entry}.py")
 
 
 def reader(metric: str, here: Path = HERE):
-    return _module(here / "metrics" / f"{metric}.py")
+    return load_module(here / "metrics" / f"{metric}.py")
 
 
 def cell_metrics(spec: dict, name: str) -> tuple[list, list]:

@@ -15,6 +15,15 @@ names: no kernel, cache or module of the measured program. The models:
   (X-ray → ResNeXt50, DESS and T2 slices → two ResNet50s and two CLS-less
   FeaTs, a clinical token, a final CLS FeaT).
 
+A feature extractor that ``ARCHS`` lacks is found by its name in
+``fe/<arch>.py`` beside this file: ``spec(prefix)`` (its state-dict
+entries as :func:`param_spec` lists them), ``WIDTH`` (its output width)
+and ``forward(x, p, prefix, train, prec, remat)`` → (N, WIDTH), built on
+:func:`conv`, :func:`linear` and :func:`batch_norm` so that a control's
+:class:`Precision` reaches it. A family outside ``FAMILIES`` is found
+in ``families/<name>.py``: ``param_spec(cfg)``, ``token_counts(cfg)`` and
+``forward`` as :func:`forward` takes it.
+
 Departures from the paper's description, all shared with the reference
 implementation:
 
@@ -35,11 +44,17 @@ can be compared step for step.
 
 from __future__ import annotations
 
+import functools
 import math
+from pathlib import Path
 
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
+
+from benchmark.harness import load_module
+
+HERE = Path(__file__).resolve().parent
 
 # arch → (block, blocks per stage, groups, base width, output channels)
 ARCHS = {
@@ -55,6 +70,15 @@ LEVELS = {"fp8": None, "int8": 127, "int4": 7}
 # those in which a model is computed, its activations and gradients held
 # there (int4 stands for int8 serving, whose epilogues stay float32)
 HELD = ("fp8", "int8")
+# the families this file defines; any other is found by name
+FAMILIES = ("MR1CnnTrf", "XR1MR2C1CnnTrf")
+
+
+@functools.cache
+def by_name(kind: str, name: str):
+    """The reference ``<kind>/<name>.py`` beside this file: a feature
+    extractor (``fe``) or a family (``families``) defined outside it."""
+    return load_module(HERE / kind / f"{name}.py")
 
 
 # ---------------------------------------------------------------- precision
@@ -215,6 +239,16 @@ def resnet_spec(prefix: str, arch: str) -> list:
     return spec
 
 
+def fe_spec(prefix: str, arch: str) -> list:
+    """(name, shape, kind) of every tensor of the feature extractor."""
+    return (resnet_spec(prefix, arch) if arch in ARCHS
+            else by_name("fe", arch).spec(prefix))
+
+
+def fe_width(arch: str) -> int:
+    return ARCHS[arch][4] if arch in ARCHS else by_name("fe", arch).WIDTH
+
+
 def _linear_spec(prefix: str, d_in: int, d_out: int, bias=True) -> list:
     spec = [(f"{prefix}weight", (d_out, d_in), "w")]
     return spec + ([(f"{prefix}bias", (d_out,), "zero")] if bias else [])
@@ -251,6 +285,8 @@ def _scaled(size, factor) -> list:
 
 def token_counts(cfg: dict) -> dict:
     """Tokens of each FeaT of a model config."""
+    if cfg["name"] not in FAMILIES:
+        return by_name("families", cfg["name"]).token_counts(cfg)
     ds = cfg.get("downscale") or [None] * len(cfg["input_size"])
     if cfg["name"] == "MR1CnnTrf":
         return {"_agg.": _scaled(cfg["input_size"][0], ds[0])[2]}
@@ -262,20 +298,20 @@ def token_counts(cfg: dict) -> dict:
 def param_spec(cfg: dict) -> list:
     """(name, shape, kind) of every tensor of the model's state dict, in a
     fixed order; ``kind`` says how :func:`make_weights` fills it."""
+    if cfg["name"] not in FAMILIES:
+        return by_name("families", cfg["name"]).param_spec(cfg)
     classes = int(cfg["output_channels"])
     tokens = token_counts(cfg)
     if cfg["name"] == "MR1CnnTrf":
         arch = cfg["fe"]["arch"]
-        dim = ARCHS[arch][4]
-        return (resnet_spec("_fe.", arch)
+        dim = fe_width(arch)
+        return (fe_spec("_fe.", arch)
                 + feat_spec("_agg.", tokens["_agg."], dim, cfg["agg"],
                             classes, True))
-    if cfg["name"] != "XR1MR2C1CnnTrf":
-        raise ValueError(f"no reference for {cfg['name']}")
     xr, mr = cfg["fe"]["xr"]["arch"], cfg["fe"]["mr"]["arch"]
-    dim = ARCHS[mr][4]
-    return (resnet_spec("_fe0.", xr) + resnet_spec("_fe1.", mr)
-            + resnet_spec("_fe2.", mr)
+    dim = fe_width(mr)
+    return (fe_spec("_fe0.", xr) + fe_spec("_fe1.", mr)
+            + fe_spec("_fe2.", mr)
             + feat_spec("_agg_1.", tokens["_agg_1."], dim, cfg["agg"],
                         classes, False)
             + feat_spec("_agg_2.", tokens["_agg_2."], dim, cfg["agg"],
@@ -382,6 +418,15 @@ def resnet(x, p: dict, prefix: str, arch: str, train: bool = False,
     return x.mean(dim=(2, 3))
 
 
+def fe_forward(x, p: dict, prefix: str, arch: str, train: bool = False,
+               prec=FLOAT32, remat: bool = False):
+    """(N, 1, H, W) images through the feature extractor ``arch`` → (N, C)
+    features."""
+    if arch in ARCHS:
+        return resnet(x, p, prefix, arch, train, prec, remat)
+    return by_name("fe", arch).forward(x, p, prefix, train, prec, remat)
+
+
 def feat(tokens, p: dict, prefix: str, heads: int, prec=FLOAT32,
          drop=None, rates=(0.0, 0.0)):
     """(B, N, C) tokens → (head output (B, classes), states (B, N', C)).
@@ -433,7 +478,7 @@ def _mr_tokens(volume, p, prefix, fe, train, prec, remat, drop):
     """A volume's slices through the feature extractor, dropout on the
     features; → (B, S, C) tokens."""
     images, s = _slices(volume)
-    feats = resnet(images, p, prefix, fe["arch"], train, prec, remat)
+    feats = fe_forward(images, p, prefix, fe["arch"], train, prec, remat)
     return _drop(drop, feats, fe.get("dropout") or 0.0).view(
         volume.shape[0], s, -1)
 
@@ -445,6 +490,9 @@ def forward(cfg: dict, p: dict, xs, train: bool = False, prec=FLOAT32,
     in the order in which the program's forward pass calls its dropouts
     (the clinical token, the X-ray, the MRI features, then the FeaTs);
     None leaves dropout out, as eval does."""
+    if cfg["name"] not in FAMILIES:
+        return by_name("families", cfg["name"]).forward(
+            cfg, p, xs, train, prec, remat, drop)
     agg = cfg["agg"]
     heads = int(agg["heads"])
     rates = (agg.get("emb_dropout") or 0.0, agg.get("mlp_dropout") or 0.0)
@@ -456,8 +504,8 @@ def forward(cfg: dict, p: dict, xs, train: bool = False, prec=FLOAT32,
     clin = _drop(drop, F.gelu(linear(xs[3], p["_fe3._fe.0.weight"],
                                      p["_fe3._fe.0.bias"], prec)),
                  fe["clin"].get("dropout") or 0.0)
-    t_xr = _drop(drop, resnet(xs[0], p, "_fe0.", fe["xr"]["arch"], train,
-                              prec, remat),
+    t_xr = _drop(drop, fe_forward(xs[0], p, "_fe0.", fe["xr"]["arch"],
+                                  train, prec, remat),
                  fe["xr"].get("dropout") or 0.0)[:, None]
     tok1 = _mr_tokens(xs[1], p, "_fe1.", fe["mr"], train, prec, remat, drop)
     tok2 = _mr_tokens(xs[2], p, "_fe2.", fe["mr"], train, prec, remat, drop)

@@ -1,9 +1,11 @@
-"""The harness on the CPU: cells found by name, the metric readers on a
-recorded trace, the imports the benchmark may not make, and the check
-that a broken program cannot pass."""
+"""The harness on the CPU: cells, configurations and metrics found by
+name, the metric readers on a recorded trace, the imports the benchmark
+may not make, and the check that a broken program cannot pass."""
 
 import ast
 import json
+import math
+import os
 import shutil
 import subprocess
 import sys
@@ -39,6 +41,7 @@ def test_every_cell_has_its_files():
         data = harness.load_json(ROOT / conf["file"])
         assert data["reduced"] == conf["reduced"]
         assert any(w["config"] == conf["name"] for w in SPEC["workloads"])
+        assert conf["name"] in tiny.configs()
 
 
 def test_a_new_cell_is_found_by_name(tmp_path):
@@ -63,6 +66,148 @@ def test_a_new_cell_is_found_by_name(tmp_path):
     assert r.correct and r.attempted >= 1
 
 
+# A configuration that nothing in the tree defines: MR1CnnTrf over VGG16
+# (Simonyan and Zisserman, ICLR 2015; torchvision ``vgg16``), which the
+# program has and the reference and the counts lack, with the files it
+# brings: its reference, its count, its test size, a cell, and a made-up
+# per-layer metric with its reader and its test.
+VGG_PLAN = ("(64, 64, 'M', 128, 128, 'M', 256, 256, 256, 'M', "
+            "512, 512, 512, 'M', 512, 512, 512, 'M')")
+VGG_REFERENCE = f'''"""VGG16's features: 3x3 convolutions with bias and ReLU,
+2x2 max pools, global average pooling; the RGB stem's kernel summed over
+its input channels."""
+
+import torch.nn.functional as F
+
+from benchmark.reference import nets
+
+PLAN = {VGG_PLAN}
+WIDTH = 512
+
+
+def _convs():
+    i, cin = 0, 3
+    for item in PLAN:
+        yield i, cin, item
+        i += 1 if item == "M" else 2
+        cin = cin if item == "M" else item
+
+
+def spec(prefix):
+    out = []
+    for i, cin, cout in _convs():
+        if cout != "M":
+            out += [(f"{{prefix}}features.{{i}}.weight", (cout, cin, 3, 3),
+                     "w"), (f"{{prefix}}features.{{i}}.bias", (cout,),
+                            "zero")]
+    return out
+
+
+def forward(x, p, prefix, train, prec, remat):
+    for i, _, cout in _convs():
+        if cout == "M":
+            x = F.max_pool2d(x, 2, 2)
+            continue
+        w = p[f"{{prefix}}features.{{i}}.weight"]
+        if i == 0:
+            w = w.sum(dim=1, keepdim=True)
+        b = p[f"{{prefix}}features.{{i}}.bias"]
+        x = F.relu(nets.conv(x, w, 1, 1, prec=prec) + b.view(1, -1, 1, 1))
+    return x.mean(dim=(2, 3))
+'''
+VGG_COUNT = f'''"""VGG16's convolutions of one grayscale image."""
+
+PLAN = {VGG_PLAN}
+WIDTH = 512
+
+
+def convs(size):
+    out, cin = [], 1
+    for item in PLAN:
+        if item == "M":
+            size //= 2
+        else:
+            out.append((size, cin, item, 3, 1, 1, 1, "conv"))
+            cin = item
+    return out
+'''
+NEW_READER = '''"""Knees the window's requests carried, as counted."""
+
+
+def read(run):
+    return run.counters.get("knees")
+'''
+NEW_READER_TEST = '''from benchmark import harness
+from benchmark.tests import tiny
+
+
+def test_the_new_cell_reads_knees_counted():
+    spec = harness.bench_spec(harness.ROOT)
+    r = tiny.run(tiny.cell("vgg.request-b1", dtype="float32"))
+    assert r.correct and r.attempted >= 1, r.checks
+    _, layers = harness.cell_metrics(spec, "vgg.request-b1")
+    assert [m["name"] for m in layers] == ["knees_counted.request"]
+    assert harness.reader("knees_counted.request").read(r) == r.attempted
+'''
+
+
+def test_a_new_configuration_is_found_by_name(tmp_path):
+    """A configuration whose feature extractor the reference and the
+    counts lack, dropped into a copy of the benchmark as new files only
+    (reference, count, test size, cell, a per-layer metric's reader and its
+    test) with its BENCHMARK.json entries: its cell runs through the
+    ``predictor`` entry in float32 and is correct, the reference matches
+    the program, the count matches ``FlopCounterMode``, and the new metric
+    is given to the cell and read."""
+    here = tmp_path / "benchmark"
+    shutil.copytree(HERE, here, ignore=shutil.ignore_patterns(
+        "__pycache__"))
+    files = {"reference/fe/vgg16.py": VGG_REFERENCE,
+             "counts/fe/vgg16.py": VGG_COUNT,
+             "metrics/knees_counted.request.py": NEW_READER,
+             "tests/test_knees_counted.py": NEW_READER_TEST}
+    conf = harness.load_json(HERE / "configs" / "mr1_cnntrf.json")
+    conf["model"]["fe"]["arch"] = "vgg16"
+    size = dict(tiny.MR1, input_size=[[64, 64, 8]],
+                fe=dict(tiny.MR1["fe"], arch="vgg16"))
+    wl = dict(harness.load_json(HERE / "workloads" / "mr1.request-b1.json"),
+              config="mr1_vgg16")
+    for rel, data in [("configs/mr1_vgg16.json", conf),
+                      ("tests/sizes/mr1_vgg16.json", size),
+                      ("workloads/vgg.request-b1.json", wl)]:
+        files[rel] = json.dumps(data)
+    for rel, text in files.items():
+        assert not (here / rel).exists(), rel
+        (here / rel).parent.mkdir(parents=True, exist_ok=True)
+        (here / rel).write_text(text)
+    spec = json.loads(json.dumps(SPEC))
+    spec["configs"].append(dict(spec["configs"][-1], name="mr1_vgg16",
+                                file="benchmark/configs/mr1_vgg16.json"))
+    spec["workloads"].append(dict(spec["workloads"][-1],
+                                  name="vgg.request-b1", config="mr1_vgg16"))
+    spec["per_layer"].append({
+        "name": "knees_counted.request", "unit": "knees", "better": "higher",
+        "source": "program_counter", "layer": "serving entry",
+        "moves": "request_p95_ms", "workloads": ["vgg.request-b1"]})
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(spec))
+
+    tests = "benchmark/tests/"
+    nodes = [f"{tests}test_bench_reference.py::{t}[mr1_vgg16]"
+             for t in ("test_eval_forward_matches_program",
+                       "test_flop_count_matches_flop_counter")]
+    nodes += [f"{tests}test_knees_counted.py",
+              f"{tests}test_bench_harness.py::"
+              "test_metric_readers_on_a_recorded_trace"]
+    # the copy's benchmark package first, the program from this tree
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run(
+        [sys.executable, "-m", "pytest", "-q", "-p", "no:cacheprovider",
+         *nodes], capture_output=True, text=True, cwd=tmp_path, env=env,
+        timeout=600)
+    assert proc.returncode == 0 and "4 passed" in proc.stdout, (
+        proc.stdout[-4000:] + proc.stderr[-2000:])
+
+
 def _trace():
     """Two requests' worth of device work in a 10 ms window: K5 2 ms, a
     BatchNorm kernel 1 ms, an upload 0.5 ms, a kernel outside."""
@@ -84,39 +229,62 @@ def _trace():
     return harness.Trace.from_chrome(ev)
 
 
-def test_metric_readers_on_a_recorded_trace():
+def _named_in_tests() -> str:
+    return "\n".join(p.read_text() for p in (HERE / "tests").rglob("*.py"))
+
+
+def test_metric_readers_on_a_recorded_trace(monkeypatch):
+    """Every per-layer metric of every cell on the synthetic trace, with
+    the program's spans of ``test_span_readers``: the values held here,
+    any other finite or None; a metric of the device trace reads None on a
+    window with no device work; some test here names each metric."""
+    from oaprogressionmmf_torch import tracing
+    from benchmark.tests.test_span_readers import SPANS, WANT
     trace = _trace()
     assert trace.busy_us() == pytest.approx(3000.0)
     want = {"idle_share.train": 70.0, "idle_share.score": 70.0,
             "idle_share.request": 70.0, "bn_ms.train": 0.5,
-            "h2d_ms.request": 0.25, "loader_wait_ms.train": 3.0}
-    for name in CELLS:
-        c = harness.cell(name)
-        r = harness.Run(c, 0, 0.01, True, torch.device("cpu"), 0.0)
-        r.trace = trace
-        r.counters = {"steps": 2, "requests": 2, "loader_wait_s": 0.006,
-                      "knees": 2 * int(c["traffic"]["batch"])}
-        for m in harness.cell_metrics(SPEC, name)[1]:
-            got = harness.reader(m["name"]).read(r)
-            if m["name"] in want:
-                assert got == pytest.approx(want[m["name"]]), m["name"]
-            elif m["name"] == "k5_roofline":
-                from benchmark.counts.k5 import request_bound_s
-                assert got == pytest.approx(
-                    100 * 2 * request_bound_s(c["model"], 16) / 2e-3)
-            else:
-                from benchmark.counts.flops import peak_seconds
-                assert m["name"].startswith("mfu.")
-                assert got == pytest.approx(100 * peak_seconds(
-                    c["model"], r.counters["knees"],
-                    c["traffic"].get("quant"), "train" in name) / 0.01)
+            "h2d_ms.request": 0.25, "loader_wait_ms.train": 3.0, **WANT}
+    named = _named_in_tests()
+    tracing.clear()
+    monkeypatch.setattr(tracing, "_unix_offset", lambda: 0)
+    with tracing.recording():
+        for span, s, e in SPANS:
+            tracing.add(span, s * 1000, e * 1000)
+    try:
+        for name in CELLS:
+            c = harness.cell(name)
+            r = harness.Run(c, 0, 0.01, True, torch.device("cpu"), 0.0)
+            r.trace = trace
+            r.counters = {"steps": 2, "requests": 2, "loader_wait_s": 0.006,
+                          "knees": 2 * int(c["traffic"]["batch"])}
+            layers = harness.cell_metrics(SPEC, name)[1]
+            for m in layers:
+                assert m["name"] in named, m["name"]
+                got = harness.reader(m["name"]).read(r)
+                if m["name"] in want:
+                    assert got == pytest.approx(want[m["name"]]), m["name"]
+                elif m["name"] == "k5_roofline":
+                    from benchmark.counts.k5 import request_bound_s
+                    assert got == pytest.approx(
+                        100 * 2 * request_bound_s(c["model"], 16) / 2e-3)
+                elif m["name"] in ("mfu.train", "mfu.score", "mfu.request"):
+                    from benchmark.counts.flops import peak_seconds
+                    assert got == pytest.approx(100 * peak_seconds(
+                        c["model"], r.counters["knees"],
+                        c["traffic"].get("quant"), "train" in name) / 0.01)
+                else:
+                    assert got is None or math.isfinite(got), m["name"]
+            r.trace = harness.Trace.from_chrome([_trace_window_only()])
+            for m in layers:
+                if m["source"] == "device_trace":
+                    assert harness.reader(m["name"]).read(r) is None, (
+                        m["name"])
+    finally:
+        tracing.clear()
     gaps = dict(trace.idle_gaps())
     assert gaps == pytest.approx({"aten::item": 5.5e-3,
                                   "(no host call)": 1.5e-3})
-    r.trace = harness.Trace.from_chrome([_trace_window_only()])
-    for m in harness.cell_metrics(SPEC, CELLS[0])[1]:
-        if m["source"] == "device_trace":
-            assert harness.reader(m["name"]).read(r) is None, m["name"]
 
 
 def _trace_window_only():

@@ -11,17 +11,17 @@ from benchmark.reference import nets, preprocess, train as ref_train
 from benchmark.tests import tiny
 from benchmark.traffic.knees import Cohort
 
-FLAGSHIP_MODALS = ["xr_pa", "sag_3d_dess", "sag_t2_map", "clin"]
-CASES = [(tiny.FLAGSHIP, FLAGSHIP_MODALS), (tiny.MR1, ["sag_3d_dess"])]
+FLAGSHIP_MODALS = tiny.modals("xr1mr2c1_cnntrf")
 
 
 def _cohort(cfg, modals, n=4, seed=5):
     return Cohort(cfg, modals, {"knees": n}, seed, "cpu")
 
 
-@pytest.mark.parametrize("cfg,modals", CASES, ids=["flagship", "mr1"])
-def test_eval_forward_matches_program(cfg, modals):
+@pytest.mark.parametrize("config", tiny.configs())
+def test_eval_forward_matches_program(config):
     from oaprogressionmmf_torch.serving import make_predictor
+    cfg, modals = tiny.size(config), tiny.modals(config)
     sd = nets.make_weights(cfg, 7, "cpu")
     xs = _cohort(cfg, modals).batch(range(4))
     pred = make_predictor(cfg, {k: v.clone() for k, v in sd.items()}, modals,
@@ -111,8 +111,9 @@ def test_train_steps_match_program():
                                    atol=2 * 2 * lr + 1e-7)
 
 
-@pytest.mark.parametrize("cfg,modals", CASES, ids=["flagship", "mr1"])
-def test_flop_count_matches_flop_counter(cfg, modals):
+@pytest.mark.parametrize("config", tiny.configs())
+def test_flop_count_matches_flop_counter(config):
+    cfg, modals = tiny.size(config), tiny.modals(config)
     sd = nets.make_weights(cfg, 1, "cpu")
     xs = _cohort(cfg, modals, n=2).batch(range(2))
     inputs = preprocess.eval_inputs(modals, cfg["downscale"],

@@ -1,40 +1,42 @@
 """Cells of the benchmark at sizes a CPU test can hold: the cells' own
-files, with the model's widths, inputs and cohort cut down."""
+files, with the model's widths, inputs and cohort cut down.
+
+A configuration's model at test size is ``sizes/<config>.json`` beside
+this file; every configuration that has one is held against the program
+and against ``FlopCounterMode`` (``test_bench_reference.py``).
+"""
 
 from __future__ import annotations
 
 import copy
 import time
+from pathlib import Path
 
 import torch
 
 from benchmark import harness
 
-FLAGSHIP = {
-    "name": "XR1MR2C1CnnTrf",
-    "input_size": [[64, 64], [32, 32, 8], [32, 32, 4], [16]],
-    "downscale": [[0.5, 0.5], [0.5, 0.5, 0.5], [0.5, 0.5, 1.0], [1.0]],
-    "input_channels": 1, "output_channels": 2, "output_type": "dict",
-    "fe": {"xr": {"arch": "resnet18", "pretrained": False, "with_gap": True,
-                  "dropout": 0.1},
-           "mr": {"arch": "resnet18", "pretrained": False, "with_gap": True,
-                  "dropout": 0.1},
-           "clin": {"dim_in": 9, "dim_out": 512, "dropout": 0.1}},
-    "agg": {"num_slices": [1, 4, 4, 1], "depth": 1, "heads": 2,
-            "emb_dropout": 0.1, "mlp_dim": 64, "mlp_dropout": 0.1},
-    "pretrained": False, "restore_weights": False, "debug": False,
-}
-MR1 = {
-    "name": "MR1CnnTrf",
-    "input_size": [[32, 32, 8]], "downscale": [[0.5, 0.5, 0.5]],
-    "input_channels": 1, "output_channels": 2, "output_type": "dict",
-    "fe": {"arch": "resnet50", "pretrained": False, "with_gap": True,
-           "dropout": 0.0, "dims_view": "rc"},
-    "agg": {"num_slices": None, "depth": 1, "heads": 2, "emb_dropout": 0.1,
-            "mlp_dim": 64, "mlp_dropout": 0.1},
-    "pretrained": False, "restore_weights": False, "debug": False,
-}
-MODELS = {"xr1mr2c1_cnntrf": FLAGSHIP, "mr1_cnntrf": MR1}
+SIZES = Path(__file__).resolve().parent / "sizes"
+
+
+def size(config: str) -> dict:
+    """The model of configuration ``config`` at test size."""
+    return harness.load_json(SIZES / f"{config}.json")
+
+
+def configs() -> list:
+    """The configurations that have a test size."""
+    return sorted(p.stem for p in SIZES.glob("*.json"))
+
+
+def modals(config: str) -> list:
+    """The modalities that configuration ``config`` reads, in order."""
+    return harness.load_json(harness.HERE / "configs"
+                             / f"{config}.json")["modals"]
+
+
+FLAGSHIP = size("xr1mr2c1_cnntrf")
+MR1 = size("mr1_cnntrf")
 
 
 def cell(name: str, **traffic) -> dict:
@@ -42,7 +44,7 @@ def cell(name: str, **traffic) -> dict:
     where larger, its cohort to three batches and ``traffic``
     overridden."""
     c = copy.deepcopy(harness.cell(name))
-    c["model"] = copy.deepcopy(MODELS[c["config"]])
+    c["model"] = size(c["config"])
     tr = c["traffic"]
     tr["batch"] = min(int(tr["batch"]), 4)
     tr["knees"] = 3 * tr["batch"]
