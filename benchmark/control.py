@@ -23,7 +23,9 @@ ROOT = Path(__file__).resolve().parents[1]
 
 def readings(cell: dict, seed: int, device) -> dict:
     """The numbers that the cell's check compares, with the reference in
-    the control's precision in the program's place."""
+    the control's precision in the program's place: the cell's entry
+    (``drivers/<entry>.py``) gives them by its ``control_readings(cell,
+    cohort, seed, device, prec)``."""
     from benchmark import harness
     from benchmark.reference import nets
     from benchmark.traffic.knees import Cohort
@@ -33,17 +35,7 @@ def readings(cell: dict, seed: int, device) -> dict:
                     cell["traffic"], seed, device)
     drv = harness.driver(cell["entry"])
     with harness.reference_precision():
-        if cell["entry"] == "train_epoch":
-            sd0 = nets.make_weights(cell["model"], seed, device)
-            ctl = drv.reference_readings(cell, cohort, seed, device, prec)
-            ref = drv.reference_readings(cell, cohort, seed, device)
-            return drv.gaps(ctl, ref, sd0)
-        b = int(cell["traffic"]["batch"])
-        ctl = drv.reference_logits(cell, cohort, seed, device, prec)
-        want = drv.reference_logits(cell, cohort, seed, device)
-        probs = [(i, _probabilities(ctl[i * b:(i + 1) * b]))
-                 for i in range(len(ctl) // b)]
-        return {"logit_gap": drv.gap(probs, want, b)}
+        return drv.control_readings(cell, cohort, seed, device, prec)
 
 
 def judged(cell: dict, found: dict, seed: int = 0, device=None):
@@ -55,15 +47,6 @@ def judged(cell: dict, found: dict, seed: int = 0, device=None):
         r.check(name, found[name], limit)
     r.readings = {k: v for k, v in found.items() if k not in r.checks}
     return r
-
-
-def _probabilities(d):
-    """Probabilities of two classes whose logits differ by ``d``, as the
-    program hands them over (float32)."""
-    import numpy as np
-    d = d.astype(np.float64)
-    return np.stack([1.0 / (1.0 + np.exp(d)), 1.0 / (1.0 + np.exp(-d))],
-                    axis=1).astype(np.float32)
 
 
 def main(argv=None) -> int:

@@ -88,6 +88,27 @@ def gap(answers: list, want: np.ndarray, batch: int) -> float:
     return worst
 
 
+def _probabilities(d: np.ndarray) -> np.ndarray:
+    """Probabilities of two classes whose logits differ by ``d``, as the
+    program hands them over (float32)."""
+    d = d.astype(np.float64)
+    return np.stack([1.0 / (1.0 + np.exp(d)), 1.0 / (1.0 + np.exp(-d))],
+                    axis=1).astype(np.float32)
+
+
+def control_readings(cell: dict, cohort: Cohort, seed: int, device,
+                     prec) -> dict:
+    """The check's number (:func:`gap`) with the reference in ``prec`` in
+    the program's place (``control.py``): its l1 − l0 handed over as the
+    program's probabilities."""
+    b = int(cell["traffic"]["batch"])
+    ctl = reference_logits(cell, cohort, seed, device, prec)
+    want = reference_logits(cell, cohort, seed, device)
+    answers = [(i, _probabilities(ctl[i * b:(i + 1) * b]))
+               for i in range(len(ctl) // b)]
+    return {"logit_gap": gap(answers, want, b)}
+
+
 def run(r: harness.Run) -> None:
     cell, dev, seed = r.cell, r.device, r.seed
     tr = cell["traffic"]

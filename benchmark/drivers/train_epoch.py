@@ -84,6 +84,19 @@ def given_masks(masks):
         functional.dropout = original
 
 
+def first_moment(rt) -> dict:
+    """Adam's first moment of each parameter, on the host (zero for a
+    parameter that the steps left without state)."""
+    return {name: _host(rt.optimizer.state[p].get("exp_avg",
+                                                  torch.zeros_like(p)))
+            for name, p in zip(rt.param_names, rt.params)}
+
+
+def parameters(rt) -> dict:
+    """The parameters, on the host."""
+    return {name: _host(p) for name, p in zip(rt.param_names, rt.params)}
+
+
 def _record(rt, steps: list, seed: int):
     """Wrap ``rt.train_step`` so that its first calls take the seed's
     dropout masks and are recorded; returns the original."""
@@ -98,14 +111,9 @@ def _record(rt, steps: list, seed: int):
         rec = {"loss": float(loss)}
         if n == 0:
             rec["logits"] = _host(logits)
-            # a parameter the step left without state has none
-            rec["exp_avg"] = {
-                name: _host(rt.optimizer.state[p].get(
-                    "exp_avg", torch.zeros_like(p)))
-                for name, p in zip(rt.param_names, rt.params)}
+            rec["exp_avg"] = first_moment(rt)
         if n == RECORDED_STEPS - 1:
-            rec["params"] = {name: _host(p)
-                             for name, p in zip(rt.param_names, rt.params)}
+            rec["params"] = parameters(rt)
         steps.append(rec)
         return loss, logits
 
@@ -125,14 +133,23 @@ def program_readings(steps: list, sd0: dict, weight_decay: float) -> dict:
             "params": {k: v.to(dev) for k, v in steps[-1]["params"].items()}}
 
 
-def reference_batches(cell: dict, cohort: Cohort, seed: int, device):
+def batch_rows(cell: dict, order: np.ndarray, step: int) -> np.ndarray:
+    """The knees of step ``step``: rows [b·step, b·(step + 1)) of the
+    epoch's ``order``."""
+    b = int(cell["traffic"]["batch"])
+    return order[step * b:(step + 1) * b]
+
+
+def reference_batches(cell: dict, cohort: Cohort, seed: int, device,
+                      rows=batch_rows):
     """The recorded steps' batches, worked out again: the sampler's order
-    of epoch 0 and each step's augmentation draws."""
+    of epoch 0, each step's knees (``rows(cell, order, step)``) and its
+    augmentation draws."""
     model, modals = cell["model"], cell["config_file"]["modals"]
     b = int(cell["traffic"]["batch"])
     order = preprocess.epoch_order(cohort.targets(), seed, 0)
     for step in range(RECORDED_STEPS):
-        idx = order[step * b:(step + 1) * b]
+        idx = rows(cell, order, step)
         xs = [torch.from_numpy(x).to(device) for x in cohort.batch(idx)]
         draws = preprocess.step_draws(seed, 0, step, modals, b, device)
         inputs = preprocess.train_inputs(modals, model.get("downscale"),
@@ -141,17 +158,28 @@ def reference_batches(cell: dict, cohort: Cohort, seed: int, device):
 
 
 def reference_readings(cell: dict, cohort: Cohort, seed: int, device,
-                       prec=nets.FLOAT32) -> dict:
+                       prec=nets.FLOAT32, rows=batch_rows) -> dict:
     """The recorded steps of the reference, in ``prec``."""
     model = cell["model"]
     sd = nets.make_weights(model, seed, device)
     steps_per_epoch = len(cohort) // int(cell["traffic"]["batch"])
     out = ref_train.train_steps(
         model, cell["config_file"]["training"], sd,
-        reference_batches(cell, cohort, seed, device), steps_per_epoch,
+        reference_batches(cell, cohort, seed, device, rows),
+        steps_per_epoch,
         seed, prec)
     out["params"] = {k: sd[k] for k in ref_train.trainable(sd)}
     return out
+
+
+def control_readings(cell: dict, cohort: Cohort, seed: int, device,
+                     prec, rows=batch_rows) -> dict:
+    """The check's numbers (:func:`gaps`) with the reference in ``prec``
+    in the program's place (``control.py``)."""
+    sd0 = nets.make_weights(cell["model"], seed, device)
+    ctl = reference_readings(cell, cohort, seed, device, prec, rows)
+    ref = reference_readings(cell, cohort, seed, device, rows=rows)
+    return gaps(ctl, ref, sd0)
 
 
 def gaps(prog: dict, ref: dict, sd0: dict) -> dict:
@@ -233,7 +261,10 @@ def _train(r: harness.Run, cohort: Cohort) -> list:
     return steps
 
 
-def _check(r: harness.Run, steps: list, cohort: Cohort) -> None:
+def _check(r: harness.Run, steps: list, cohort: Cohort,
+           rows=batch_rows) -> None:
+    """The recording ``steps`` against the reference over the same
+    steps' knees (``rows``, as :func:`reference_batches` takes them)."""
     cell, dev, seed = r.cell, r.device, r.seed
     t0 = time.perf_counter()
     sd0 = nets.make_weights(cell["model"], seed, dev)
@@ -242,7 +273,7 @@ def _check(r: harness.Run, steps: list, cohort: Cohort) -> None:
     prog = program_readings(steps, sd0, wd)
     del steps
     with harness.reference_precision():
-        ref = reference_readings(cell, cohort, seed, dev)
+        ref = reference_readings(cell, cohort, seed, dev, rows=rows)
     found = gaps(prog, ref, sd0)
     r.counters["check_s"] = time.perf_counter() - t0
     for name, value in found.items():

@@ -9,6 +9,13 @@ per-layer metric ``<metric>`` that ``BENCHMARK.json`` lists for the cell is
 read by ``metrics/<metric>.py``. Nothing here names a cell, a
 configuration or a metric.
 
+An entry ``<entry>`` is ``drivers/<entry>.py``: its ``run(run)`` drives
+the cell's set-up, window and check, and its ``control_readings(cell,
+cohort, seed, device, prec)`` gives the numbers that the check compares
+with the reference in the control's precision in the program's place
+(``control.py``). A new entry comes as a new file there, with no edit to
+a file that is here.
+
 What a configuration's model is made of is found by name too. Its plain
 reference is ``reference/nets.py`` where that defines the model; a feature
 extractor ``<arch>`` that it lacks is ``reference/fe/<arch>.py``, a family

@@ -15,7 +15,7 @@ import pytest
 import torch
 
 from benchmark import control, harness
-from benchmark.tests import tiny
+from benchmark.tests import faults, tiny
 
 HERE = Path(harness.__file__).resolve().parent
 ROOT = HERE.parent
@@ -325,47 +325,42 @@ def test_run_without_a_card_prints_no_result():
 
 # ------------------------------------------------------------ broken runs
 
-def _no_step(monkeypatch):
-    monkeypatch.setattr(torch.optim.Adam, "step",
-                        lambda self, closure=None: None)
+_SOUND: dict = {}
 
 
-def _half_batch(monkeypatch):
-    from oaprogressionmmf_torch.ops import losses
-    make = losses.dict_losses["FocalLoss"]
-
-    def half(**kw):
-        fn = make(**kw)
-        return lambda logits, ys: fn(logits[:len(ys) // 2],
-                                     ys[:len(ys) // 2])
-    monkeypatch.setitem(losses.dict_losses, "FocalLoss", half)
-
-
-def _altered_answer(monkeypatch):
-    from oaprogressionmmf_torch import serving
-    call = serving.Predictor.__call__
-
-    def altered(self, xs):
-        p = call(self, xs).clone()
-        p[0] = p[0].flip(0)
-        return p
-    monkeypatch.setattr(serving.Predictor, "__call__", altered)
+def _sound(name: str):
+    """Cell ``name`` at test size in float32 and its sound run (once per
+    process)."""
+    if name not in _SOUND:
+        c = (tiny.cell(name, compute_dtype="float32") if "train" in name
+             else tiny.cell(name, dtype="float32"))
+        _SOUND[name] = c, tiny.run(c)
+    return _SOUND[name]
 
 
 @pytest.mark.parametrize("name,fault", [
-    ("xr1mr2c1.train-b16", _no_step), ("xr1mr2c1.train-b16", _half_batch),
-    ("mr1.request-b1", _altered_answer),
-    ("xr1mr2c1.score-int8-b16", _altered_answer)],
+    ("xr1mr2c1.train-b16", "no_step"), ("xr1mr2c1.train-b16", "half_batch"),
+    ("mr1.request-b1", "altered_answer"),
+    ("xr1mr2c1.score-int8-b16", "altered_answer"),
+    ("xr1mr2c1.train-dp4", "no_step"), ("xr1mr2c1.train-dp4", "half_batch"),
+    ("xr1mr2c1.train-dp4", "no_exchange")],
     ids=["train-state-unchanged", "train-half-batch", "request-answer",
-         "score-answer"])
+         "score-answer", "train-dp-state-unchanged", "train-dp-half-batch",
+         "train-dp-no-exchange"])
 def test_a_broken_program_is_not_correct(monkeypatch, name, fault):
-    c = tiny.cell(name, compute_dtype="float32") if "train" in name \
-        else tiny.cell(name, dtype="float32")
-    sound = tiny.run(c)
-    fault(monkeypatch)
+    """The fault planted in this process and, through the environment, in
+    every process that a run starts (every rank of a run of several)."""
+    c, sound = _sound(name)
+    faults.FAULTS[fault](monkeypatch)
+    monkeypatch.setenv("PLANTED_FAULT", fault)
+    monkeypatch.setenv("PYTHONPATH", os.pathsep.join(
+        [str(faults.PLANT), str(ROOT), os.environ.get("PYTHONPATH", "")]))
     broken = tiny.run(c)
     assert sound.correct and not broken.correct, (sound.checks,
                                                   broken.checks)
+    if "ranks" in c["traffic"]:
+        assert sound.readings["replica_gap"] == 0.0
+        assert broken.attempted == sound.attempted > 0
 
 
 @pytest.mark.parametrize("name", CELLS)
@@ -373,13 +368,58 @@ def test_control_reads_above_the_program(name):
     """The reference in the control's precision, in the program's place,
     reads three times the program's gap or more (test size, float32
     program on the CPU)."""
-    c = (tiny.cell(name, compute_dtype="float32") if "train" in name
-         else tiny.cell(name, dtype="float32"))
-    sound = tiny.run(c)
+    c, sound = _sound(name)
     found = control.readings(c, 3, torch.device("cpu"))
     assert any(found[k] >= 3 * v for k, (v, _) in sound.checks.items()), (
         found, sound.checks)
     assert not control.judged(c, found).correct, found
+
+
+NEW_ENTRY = '''"""A training entry that nothing in the tree names:
+``train_epoch``'s run and control under a name of its own."""
+
+from benchmark.drivers.train_epoch import control_readings, run  # noqa
+'''
+NEW_ENTRY_TEST = '''import torch
+
+from benchmark import control
+from benchmark.tests import tiny
+
+
+def test_the_new_entry_has_a_control():
+    c = tiny.cell("xr1mr2c1.train-copy", compute_dtype="float32")
+    sound = tiny.run(c)
+    found = control.readings(c, 3, torch.device("cpu"))
+    assert sound.correct, sound.checks
+    assert found["logit1_rms"] >= 3 * sound.checks["logit1_rms"][0]
+    assert not control.judged(c, found).correct, found
+'''
+
+
+def test_a_new_entry_is_found_by_name(tmp_path):
+    """A training entry dropped into a copy of the benchmark as a new
+    file, with a cell that runs it: its run and its control (``control.py``
+    asks the entry for the control's readings) work with no code
+    edited."""
+    here = tmp_path / "benchmark"
+    shutil.copytree(HERE, here, ignore=shutil.ignore_patterns(
+        "__pycache__"))
+    wl = dict(harness.load_json(HERE / "workloads" /
+                                "xr1mr2c1.train-b16.json"),
+              entry="train_copy")
+    files = {"drivers/train_copy.py": NEW_ENTRY,
+             "workloads/xr1mr2c1.train-copy.json": json.dumps(wl),
+             "tests/test_train_copy.py": NEW_ENTRY_TEST}
+    for rel, text in files.items():
+        assert not (here / rel).exists(), rel
+        (here / rel).write_text(text)
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run(
+        [sys.executable, "-m", "pytest", "-q", "-p", "no:cacheprovider",
+         "benchmark/tests/test_train_copy.py"], capture_output=True,
+        text=True, cwd=tmp_path, env=env, timeout=600)
+    assert proc.returncode == 0 and "1 passed" in proc.stdout, (
+        proc.stdout[-4000:] + proc.stderr[-2000:])
 
 
 @pytest.mark.card
