@@ -169,8 +169,15 @@ Phases (any failure exits non-zero; nothing is caught):
      bytes written and the native gzip route (built with libdeflate or
      zlib, or unavailable and Python's codec);
   9. parallelism and the paths the port added last, at the flagship's
-     full width with prog_fus.yaml's training config: (a) a single-rank
-     NCCL process group (parallel.dcn.initialize_distributed): float32
+     full width with prog_fus.yaml's training config, on a single-rank
+     NCCL process group (parallel.dcn.initialize_distributed): (e) the
+     global BatchNorm's kernels (ops/csrc/global_bn.cu) at every
+     BatchNorm of a bf16 DP step at 4 knees a rank (a four-card rank's),
+     against the plain version, with the device ms of the step's layers
+     forward and backward (kernels, the plain version, torch's
+     SyncBatchNorm function as the yardstick) beside the bound of 8
+     passes over each activation, and the host's ms to launch them; (a)
+     float32
      batch-2 steps without dropout (phase 5b's config) through the
      data-parallel step (global BatchNorm, the global loss, the gradient
      all-reduce) against TrainRuntime.train_step, each step from the same
@@ -179,7 +186,9 @@ Phases (any failure exits non-zero; nothing is caught):
      attention (Adam's first moment 1e-6 of its largest entry), then four
      DP steps on knees of their own and a validation batch with every
      launch count set to 0 just before and read just after (K1 60, K2 48,
-     K3 48, K4 3), and two timed bf16 DP steps at batch 8 with a
+     K3 48, K4 3; the global BatchNorm's kernels 4 a layer a step; the
+     float64 steps take its plain version, the kernels taking float32
+     and bf16), and two timed bf16 DP steps at batch 8 with a
      validation batch (K1 36, K2 24, K3 24, K4 3); (d) that float32
      runtime saved with ckpt_backend: orbax (a torch.distributed.checkpoint
      directory), read back and restored, every tensor torch.equal; (c)
@@ -200,9 +209,9 @@ Phases (any failure exits non-zero; nothing is caught):
 needs one card) trains data-parallel over N cards, one NCCL process each
 (``dp-worker``): the first float32 step of N × 2 knees against one
 process's step on all of them (loss 1e-5 relative, each parameter within
-Adam's per-step bound), 12 launches of each of K1-K3 on every rank, then
-bf16 DP steps at batch 8 a card, timed against one process's batch-8
-step.
+Adam's per-step bound), 12 launches of each of K1-K3 and 4 of the global
+BatchNorm's kernels a layer on every rank, then bf16 DP steps at batch 8
+a card, timed against one process's batch-8 step.
 
 Prints progress lines, then a JSON line of kernel records (with the
 per-length times behind each sum), the card line,
@@ -524,6 +533,24 @@ TP_BACKEND = "gloo"
 TP_DEVICE = "cuda:0"
 GRID_LOSS = dict(rtol=5e-3, atol=1e-5)
 GRID_PARAM = dict(rtol=2e-2, atol=2e-3)
+# 9e: the global BatchNorm kernels (ops/csrc/global_bn.cu) at every
+# BatchNorm of a four-card rank's step (GBN_RANK_BATCH knees, bf16
+# autocast, channels_last), each distinct layer timed over GBN_ITERS
+# forward-and-backward calls; the host's launch of a whole step's layers
+# (a synchronized loop) the least of GBN_HOST_REPEATS
+GBN_RANK_BATCH = 4
+GBN_ITERS = 10
+GBN_HOST_REPEATS = 3
+# a gross fault, not a tolerance (tests/test_torch_port_global_bn.py
+# holds the kernels to theirs): y and dx against the plain version, over
+# each one's largest entry
+GBN_GROSS = 2.0 ** -6
+GBN_DESIGN = ("four kernels around the all-gather and the all-reduce: "
+              "statistics (Welford per thread, Chan's merge over threads "
+              "and blocks, the last block of a channel tile merging the "
+              "partials in order), normalisation with the merge and the "
+              "running statistics, the backward's two sums, dx; 16-byte "
+              "loads along C (NHWC) or H·W (NCHW), 4 rows in flight")
 
 # phase 7: fold evaluation over phase 6's experiment directory (fold 0:
 # trainer B's epoch-1 checkpoint; fold 1: trainer A's epoch-0 one, a hard
@@ -966,6 +993,32 @@ def phase_flash_bwd() -> dict:
 def stem_module():
     """The fused-stem module (K4)."""
     return importlib.import_module("oaprogressionmmf_torch.ops.fused_stem")
+
+
+def gbn_module():
+    """The global BatchNorm kernels' module."""
+    return importlib.import_module("oaprogressionmmf_torch.ops.global_bn")
+
+
+def global_bns(model) -> list:
+    from oaprogressionmmf_torch.parallel.mesh import GlobalBatchNorm2d
+    return [m for m in model.modules() if isinstance(m, GlobalBatchNorm2d)]
+
+
+def plain_global_bn(model) -> None:
+    """Every GlobalBatchNorm2d of ``model`` on its plain version, on any
+    device: the float64 checks' (the kernels take float32 and bf16)."""
+    from oaprogressionmmf_torch.parallel.mesh import global_batch_norm_plain
+
+    def forward(m, x):
+        if not m.training:
+            return torch.nn.BatchNorm2d.forward(m, x)
+        return global_batch_norm_plain(
+            x, m.weight, m.bias, m.running_mean, m.running_var,
+            m.num_batches_tracked, m.momentum, m.eps, m.group)
+
+    for m in global_bns(model):
+        m.forward = functools.partial(forward, m)
 
 
 def stem_inputs(shape, dtype, gen):
@@ -1543,7 +1596,7 @@ KERNEL_CATEGORIES = (
     ("convolution", ("conv", "fprop", "dgrad", "wgrad", "implicit",
                      "winograd", "cudnn")),
     ("matmul (cuBLAS, cuDNN 1x1)", ("gemm", "cutlass", "xmma", "nvjet")),
-    ("batch norm", ("batch_norm", "bn_fw")),
+    ("batch norm", ("batch_norm", "bn_fw", "bn_bw")),
     ("max pool", ("max_pool",)),
     ("reductions", ("reduce",)),
 )
@@ -1566,6 +1619,8 @@ def device_breakdown(fn, latency_ms: float, what: str = "request") -> None:
                and e.self_device_time_total > 0
                and not getattr(e, "is_user_annotation", False)]
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    launched = sum(e.count for e in kernels)
+    nccl = sum(e.count for e in kernels if "nccl" in e.key.lower())
     if busy == 0:
         log("[profile] the profiler saw no device time: breakdown not "
             "measured")
@@ -1578,7 +1633,8 @@ def device_breakdown(fn, latency_ms: float, what: str = "request") -> None:
         by_cat[cat] = by_cat.get(cat, 0.0) + e.self_device_time_total / 1e3
     log(f"[profile] one {what}: device busy {busy:.3f} ms of "
         f"{latency_ms:.3f} ms unprofiled latency (idle share "
-        f"{max(0.0, 1 - busy / latency_ms):.3f})")
+        f"{max(0.0, 1 - busy / latency_ms):.3f}); {launched} kernels, "
+        f"{nccl} of them NCCL's")
     for cat, ms in sorted(by_cat.items(), key=lambda kv: -kv[1]):
         log(f"[profile]   {cat:30s} {ms:9.3f} ms  {ms / busy:6.1%}")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
@@ -2100,6 +2156,7 @@ def reset_launch_counts() -> None:
     fa.flash_attention_bwd.launches_dkv = 0
     stem_module().fused_bn_relu_pool.launches = 0
     int8_module().int8_conv2d.launches = 0
+    gbn_module().global_batch_norm.launches = 0
 
 
 def train_runtime(sd: dict, model_cfg: dict, dtype):
@@ -3323,14 +3380,16 @@ def par_steps(rt, data, steps: int, first: int = 0) -> tuple:
 
 def f64_moments(sd: dict, cfg: dict, data, dp=None, tp=None) -> dict:
     """Adam's first moment (0.1 of the gradient) after one step of the
-    float64 model with the plain attention, on the host; with ``tp`` the
-    grid's moments made whole (``parallel.tp.unshard``)."""
+    float64 model with the plain attention and (``dp``) the global
+    BatchNorm's plain version, on the host; with ``tp`` the grid's moments
+    made whole (``parallel.tp.unshard``)."""
     from oaprogressionmmf_torch.models.feat import Attention
     from oaprogressionmmf_torch.parallel.tp import unshard
     rt = par_runtime(sd, cfg, torch.float32, dp=dp, tp=tp)
     for m in rt.model.modules():
         if isinstance(m, Attention):
             m.attn_impl = "reference"
+    plain_global_bn(rt.model)
     rt.model.double()
     par_steps(rt, data, 1)
     out = {n: rt.optimizer.state[p]["exp_avg"]
@@ -3403,6 +3462,8 @@ def tp_worker(path_plan: str, rank: int) -> int:
     par_validate(rt, data(0)[0])
     torch.cuda.synchronize()
     out = {"losses": losses, "ms": ms, "launches": kernel_launches(),
+           "gbn": gbn_module().global_batch_norm.launches,
+           "layers": len(global_bns(rt.model)),
            "heads": heads, "rank": dist.get_rank(tp_group)}
     full = full_state_dict(rt.model, tp_group)
     if rank == 0:
@@ -3458,6 +3519,156 @@ def run_workers(mode: str, plan: dict, tmp: str, n: int) -> tuple:
              for r in range(n)], time.perf_counter() - t0)
 
 
+def gbn_layers(sd: dict, dp) -> list:
+    """The input of every train-mode BatchNorm of one bf16 DP step at
+    GBN_RANK_BATCH knees a rank, in call order: (shape, dtype, channels
+    last, the BatchNorm's parameter dtype)."""
+    rt = par_runtime(sd, MODEL_CFG, torch.bfloat16, dp=dp)
+    seen = []
+
+    def hook(m, args):
+        x = args[0]
+        seen.append((tuple(x.shape), x.dtype,
+                     x.is_contiguous(memory_format=torch.channels_last)
+                     and not x.is_contiguous(), m.weight.dtype))
+
+    handles = [m.register_forward_pre_hook(hook) for m in global_bns(rt.model)]
+    xs, ys = raw_inputs(GBN_RANK_BATCH), labels(GBN_RANK_BATCH)
+    par_steps(rt, lambda k: (xs, ys), 1)
+    for h in handles:
+        h.remove()
+    del rt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return seen
+
+
+def gbn_call(fn, x, dy, params):
+    """One train-mode forward and backward of a global BatchNorm version
+    ``fn`` (the kernels' or the plain version's arguments) with gradients
+    returned, not accumulated."""
+    xi, w, b, rm, rv, tracked = params
+    y = fn(xi, w, b, rm, rv, tracked, 0.1, 1e-5, None)
+    return (y,) + torch.autograd.grad(y, (xi, w, b), dy)
+
+
+def sync_batch_norm_call(x, dy, params):
+    """The same through torch's SyncBatchNorm function, its exchange
+    included (a yardstick; the port never calls it)."""
+    import torch.distributed as dist
+    from torch.nn.modules._functions import SyncBatchNorm
+    xi, w, b, rm, rv, _ = params
+    y = SyncBatchNorm.apply(xi, w, b, rm, rv, 1e-5, 0.1, dist.group.WORLD,
+                            dist.get_world_size())
+    return (y,) + torch.autograd.grad(y, (xi, w, b), dy)
+
+
+def phase_global_bn(card: str, sd: dict, dp) -> dict:
+    """Phase 9e: the global BatchNorm kernels at every BatchNorm of a
+    four-card rank's step, on the one-rank NCCL group: against the plain
+    version (a gross-fault check; tests/test_torch_port_global_bn.py holds
+    the tolerances), the device ms of a step's layers forward and backward
+    (kernels with their two collectives, the plain version, torch's
+    SyncBatchNorm), beside the bound (8 passes over each activation at the
+    memory rate), and the host's ms to launch a step's layers."""
+    from oaprogressionmmf_torch.parallel.mesh import global_batch_norm_plain
+    gbn = gbn_module().global_batch_norm
+    layers = gbn_layers(sd, dp)
+    distinct: dict = {}
+    for key in layers:
+        distinct[key] = distinct.get(key, 0) + 1
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    made: dict = {}
+
+    def inputs(key):
+        shape, dtype, nhwc, pdtype = key
+        if key not in made:
+            fmt = torch.channels_last if nhwc else torch.contiguous_format
+            x = (torch.randn(shape, device="cuda", generator=gen) * 2 + 0.5
+                 ).to(dtype).contiguous(memory_format=fmt)
+            dy = torch.randn(shape, device="cuda", generator=gen).to(
+                dtype).contiguous(memory_format=fmt)
+            c = shape[1]
+            params = (x.requires_grad_(),
+                      (torch.rand(c, device="cuda", generator=gen) + 0.5).to(
+                          pdtype).requires_grad_(),
+                      torch.randn(c, device="cuda", generator=gen).to(
+                          pdtype).requires_grad_(),
+                      torch.zeros(c, device="cuda", dtype=pdtype),
+                      torch.ones(c, device="cuda", dtype=pdtype),
+                      torch.zeros((), device="cuda", dtype=torch.int64))
+            made[key] = (x, dy, params)
+        return made[key]
+
+    versions = {"ms": lambda x, dy, p: gbn_call(gbn, x, dy, p),
+                "plain_ms": lambda x, dy, p: gbn_call(
+                    global_batch_norm_plain, x, dy, p),
+                "library_ms": sync_batch_norm_call}
+    rec = dict.fromkeys(versions, 0.0)
+    rec.update(bound_ms=0.0, worst_y=0.0, worst_dx=0.0, per_shape=[],
+               layers=len(layers), distinct=len(distinct))
+    for key, count in distinct.items():
+        x, dy, params = inputs(key)
+        got, want = (versions[v](x, dy, params) for v in ("ms", "plain_ms"))
+        errs = [((g.float() - w.float()).abs().max()
+                 / w.float().abs().max().clamp_min(1e-30)).item()
+                for g, w in zip(got[:2], want[:2])]
+        rec["worst_y"] = max(rec["worst_y"], errs[0])
+        rec["worst_dx"] = max(rec["worst_dx"], errs[1])
+        times = {v: time_ms(lambda: fn(x, dy, params), GBN_ITERS)
+                 for v, fn in versions.items()}
+        bound = 8 * x.numel() * x.element_size() / HBM_BYTES_PER_S * 1e3
+        for v, t in times.items():
+            rec[v] += t * count
+        rec["bound_ms"] += bound * count
+        rec["per_shape"].append(dict(shape=list(key[0]), dtype=str(key[1]),
+                                     channels_last=key[2], layers=count,
+                                     bound_ms=bound, **times))
+        if max(errs) > GBN_GROSS:
+            raise SystemExit(f"global BatchNorm at {key}: y, dx against the "
+                             f"plain version {errs}")
+    # the host: a step's layers in call order, launched and synchronized
+    host = {}
+    for v in ("ms", "plain_ms"):
+        best = float("inf")
+        for _ in range(GBN_HOST_REPEATS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for key in layers:
+                versions[v](*inputs(key))
+            torch.cuda.synchronize()
+            best = min(best, (time.perf_counter() - t0) * 1e3)
+        host[v] = best
+    rec["host_ms"], rec["plain_host_ms"] = host["ms"], host["plain_ms"]
+    # the wrapper's own count over these synthetic layers (a self-check;
+    # the kernel record's launches a step come from 9a's DP steps)
+    before = gbn.launches
+    for key in layers:
+        versions["ms"](*inputs(key))
+    wrapper_launches = gbn.launches - before
+    made.clear()
+    torch.cuda.empty_cache()
+    log(f"[global-bn] 9e one rank's step of {rec['layers']} BatchNorms "
+        f"({rec['distinct']} distinct, batch {GBN_RANK_BATCH}, "
+        f"{sorted({str(k[1]) for k in layers})}), forward and backward, "
+        f"device ms: kernels {rec['ms']:.3f} (with their collectives), "
+        f"plain {rec['plain_ms']:.3f}, SyncBatchNorm {rec['library_ms']:.3f}"
+        f", bound {rec['bound_ms']:.3f} (8 passes at "
+        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s); host ms to launch and finish "
+        f"them: kernels {rec['host_ms']:.2f}, plain "
+        f"{rec['plain_host_ms']:.2f}; the wrapper counted "
+        f"{wrapper_launches} launches (want {4 * rec['layers']}); largest y, dx gap over their peak "
+        f"{rec['worst_y']:.2e}, {rec['worst_dx']:.2e}  [{card}]")
+    for r in sorted(rec["per_shape"], key=lambda r: -r["ms"] * r["layers"]):
+        log(f"[global-bn]   {r['shape']} {r['dtype']} channels_last "
+            f"{r['channels_last']} x{r['layers']}: kernels {r['ms']:.4f} ms, "
+            f"plain {r['plain_ms']:.4f}, SyncBatchNorm {r['library_ms']:.4f}"
+            f", bound {r['bound_ms']:.4f}")
+    if wrapper_launches != 4 * rec["layers"]:
+        raise SystemExit(f"global BatchNorm launches {wrapper_launches}")
+    return rec
+
+
 def phase_parallel(card: str, sd: dict, train_ms: float) -> dict:
     """Phase 9: data parallelism over NCCL (a single-rank group), a DCP
     checkpoint of its state, the post-downscale augmentation, and a 1×2
@@ -3476,6 +3687,7 @@ def phase_parallel(card: str, sd: dict, train_ms: float) -> dict:
     if shard != (0, 1) or dist.get_backend() != DP_BACKEND:
         raise SystemExit(f"process group {shard}, {dist.get_backend()}")
     dp = DataParallel()
+    out["global_bn"] = phase_global_bn(card, sd, dp)
     cfg = par_config(False)
     data = functools.partial(par_batch, CHECK_BATCH)
 
@@ -3532,6 +3744,9 @@ def phase_parallel(card: str, sd: dict, train_ms: float) -> dict:
     par_validate(rt, data(0)[0])
     torch.cuda.synchronize()
     out["launches"]["dp_float32"] = counts = kernel_launches()
+    n_bn = len(global_bns(rt.model))
+    out["launches"]["gbn"] = {"layers": n_bn, "dp_float32":
+                              gbn_module().global_batch_norm.launches}
     log(f"[parallel] 9a {DP_BACKEND}, one rank: float32 batch "
         f"{CHECK_BATCH}, no dropout, {PAR_CHECK_STEPS} DP steps against "
         f"TrainRuntime's, each from the same state on the same draws: "
@@ -3541,11 +3756,15 @@ def phase_parallel(card: str, sd: dict, train_ms: float) -> dict:
         f"largest max|dm|/max|m| {worst_m:.3e} ({worst_m_name}; tol "
         f"{PAR_MOMENT_RTOL}); then {PAR_STEPS} DP steps from the start, "
         f"losses {losses}, and a validation batch launched {counts} (want "
-        f"{want_launches(PAR_STEPS)}) "
+        f"{want_launches(PAR_STEPS)}), the global BatchNorm's kernels "
+        f"{out['launches']['gbn']['dp_float32']} (want 4 × {n_bn} layers × "
+        f"{PAR_STEPS}) "
         f"{'ok' if not failed and d_loss <= LOSS_RTOL else 'FAIL'}")
-    if failed or d_loss > LOSS_RTOL or counts != want_launches(PAR_STEPS):
+    if failed or d_loss > LOSS_RTOL or counts != want_launches(PAR_STEPS) \
+            or out["launches"]["gbn"]["dp_float32"] != 4 * n_bn * PAR_STEPS:
         raise SystemExit(f"DP against TrainRuntime: loss rel {d_loss:.2e}, "
-                         f"tensors {failed[:8]}, launches {counts}")
+                         f"tensors {failed[:8]}, launches {counts}, "
+                         f"{out['launches']['gbn']}")
     out["dp_losses"] = losses
     dp_params = {n: p.detach().cpu() for n, p in rt.model.named_parameters()}
 
@@ -3591,14 +3810,18 @@ def phase_parallel(card: str, sd: dict, train_ms: float) -> dict:
     par_validate(other, xs8)
     torch.cuda.synchronize()
     out["launches"]["dp_bf16"] = counts = kernel_launches()
+    out["launches"]["gbn"]["dp_bf16"] = gbn = \
+        gbn_module().global_batch_norm.launches
     out["dp_bf16_ms"] = ms
     log(f"[parallel] 9a {DP_BACKEND}, one rank: bf16 batch {TRAIN_BATCH} "
         f"DP steps "
         f"{[round(v, 2) for v in ms]} ms (synchronized; phase 5's bare "
         f"step {train_ms:.2f}), losses {losses}; with a validation batch "
-        f"launched {counts} (want {want_launches(PAR_BF16_STEPS)})  "
-        f"[{card}]")
+        f"launched {counts} (want {want_launches(PAR_BF16_STEPS)}), the "
+        f"global BatchNorm's kernels {gbn} (want 4 × {n_bn} × "
+        f"{PAR_BF16_STEPS})  [{card}]")
     if counts != want_launches(PAR_BF16_STEPS) \
+            or gbn != 4 * n_bn * PAR_BF16_STEPS \
             or not all(np.isfinite(losses)):
         raise SystemExit(f"bf16 DP: launches {counts}, losses {losses}")
     device_breakdown(lambda: par_steps(other, data8, 1, first=3),
@@ -3662,6 +3885,7 @@ def phase_parallel(card: str, sd: dict, train_ms: float) -> dict:
     loss_ok = all(np.allclose(r["losses"], out["dp_losses"], **GRID_LOSS)
                   for r in ranks)
     out["launches"]["tp"] = [r["launches"] for r in ranks]
+    out["launches"]["gbn"]["tp_ranks"] = [r["gbn"] for r in ranks]
     out["tp_ms"] = [r["ms"] for r in ranks]
     log(f"[parallel] 9b dp×tp = 1×{PAR_TP}, gloo on the card: "
         f"{PAR_STEPS} float32 steps, local heads {ranks[0]['heads']}, "
@@ -3669,10 +3893,13 @@ def phase_parallel(card: str, sd: dict, train_ms: float) -> dict:
         f"{out['dp_losses']} ({GRID_LOSS}); params: largest "
         f"|Δ| − rtol·|p| {worst:.3e} ({worst_name}; atol {atol}, rtol "
         f"{rtol}); ms per step {out['tp_ms']}; launches per rank "
-        f"{out['launches']['tp']} (want {want_launches(PAR_STEPS)}); "
+        f"{out['launches']['tp']} (want {want_launches(PAR_STEPS)}), the "
+        f"global BatchNorm's kernels {[r['gbn'] for r in ranks]} (want 4 × "
+        f"{ranks[0]['layers']} × {PAR_STEPS}); "
         f"{wall_s:.1f} s with the processes' start  [{card}]")
     if failed or not loss_ok or any(
             r["launches"] != want_launches(PAR_STEPS)
+            or r["gbn"] != 4 * r["layers"] * PAR_STEPS
             or r["heads"] != [MODEL_CFG["agg"]["heads"] // PAR_TP]
             for r in ranks):
         raise SystemExit(f"dp×tp against DP: params {failed[:8]}, losses "
@@ -3711,6 +3938,8 @@ def dp_worker(path_plan: str, rank: int) -> int:
     reset_launch_counts()
     losses, _ = par_steps(rt, data, 1)
     out = {"losses": losses, "launches": kernel_launches(),
+           "gbn": gbn_module().global_batch_norm.launches,
+           "layers": len(global_bns(rt.model)),
            "device": f"cuda:{torch.cuda.current_device()}",
            "backend": dist.get_backend()}
     if rank == 0:
@@ -3730,6 +3959,7 @@ def dp_worker(path_plan: str, rank: int) -> int:
     out["bf16_losses"], out["bf16_ms"] = par_steps(rt, data8,
                                                    PAR_BF16_STEPS, first=1)
     out["bf16_launches"] = kernel_launches()
+    out["bf16_gbn"] = gbn_module().global_batch_norm.launches
     torch.save(out, f"{plan['out']}.{rank}")
     dist.destroy_process_group()
     return 0
@@ -3777,7 +4007,10 @@ def dp_cards(n: int) -> int:
     want_bf16 = want_launches(PAR_BF16_STEPS, 0)
     ok = (d_loss <= LOSS_RTOL and worst <= PAR_PARAM_ATOL
           and all(r["launches"] == want_f32
-                  and r["bf16_launches"] == want_bf16 for r in ranks)
+                  and r["bf16_launches"] == want_bf16
+                  and r["gbn"] == 4 * r["layers"]
+                  and r["bf16_gbn"] == 4 * r["layers"] * PAR_BF16_STEPS
+                  for r in ranks)
           and [r["device"] for r in ranks] == [f"cuda:{i}" for i in range(n)]
           and {r["backend"] for r in ranks} == {"nccl"})
     log(f"[dp-cards] {n} cards over NCCL, one process each "
@@ -3785,7 +4018,10 @@ def dp_cards(n: int) -> int:
         f"{CHECK_BATCH} knees, losses {[r['losses'][0] for r in ranks]} "
         f"against one process's {want} (largest rel {d_loss:.2e}, tol "
         f"{LOSS_RTOL}); largest |dp| {worst:.3e} ({worst_name}; tol "
-        f"{PAR_PARAM_ATOL:.3e}); launches {[r['launches'] for r in ranks]}; "
+        f"{PAR_PARAM_ATOL:.3e}); launches {[r['launches'] for r in ranks]}, "
+        f"global BatchNorm {[(r['gbn'], r['bf16_gbn']) for r in ranks]} "
+        f"(want 4 × {ranks[0]['layers']} layers × 1 and × "
+        f"{PAR_BF16_STEPS}); "
         f"bf16 DP steps at batch {TRAIN_BATCH} a card (global "
         f"{TRAIN_BATCH * n}) {[r['bf16_ms'] for r in ranks]} ms against "
         f"one process's batch-{TRAIN_BATCH} step {plain_ms} ms; "
@@ -3946,11 +4182,29 @@ def main() -> int:
         stems_and_3x3s=dict(launches_per_request=K5_SUBSET,
                             **k5["subset"]),
         per_shape=k5["per_shape"]))
+    gbn = parallel["global_bn"]
+    kernels.append(dict(
+        name="global_bn", route="cuda", source=src + "global_bn.cu",
+        design=GBN_DESIGN, replaces=None,
+        replaces_note="no Pallas kernel: the JAX package leaves BatchNorm "
+                      "under the mesh to XLA",
+        layers=gbn["layers"],
+        launches_per_step=par["gbn"]["dp_bf16"] // PAR_BF16_STEPS,
+        launches_parallel=par["gbn"], max_rel_err_y=gbn["worst_y"],
+        max_rel_err_dx=gbn["worst_dx"], ms=gbn["ms"],
+        plain_ms=gbn["plain_ms"], bound_ms=gbn["bound_ms"],
+        bound_by="bytes", library_ms=gbn["library_ms"],
+        library_computes="torch.nn.SyncBatchNorm's function with its "
+                         "all-gather, forward and backward",
+        host_ms=gbn["host_ms"], plain_host_ms=gbn["plain_host_ms"],
+        per_shape=gbn["per_shape"]))
     log(f"[int8] ms per request: {json.dumps(int8)}")
     log(f"[graph] {json.dumps(graph)}")
     log(f"[family] ms per request: {json.dumps(family_ms)}")
     log(f"[prep] {json.dumps(prep)}")
-    log(f"[parallel] {json.dumps(parallel)}")
+    # the global BatchNorm's record is the kernel table's
+    par_log = {k: v for k, v in parallel.items() if k != "global_bn"}
+    log(f"[parallel] {json.dumps(par_log)}")
     log(f"[env] chip_smoke.py ran {time.perf_counter() - T_START:.1f} s "
         f"(from after its imports of numpy and torch)")
     print(json.dumps({"kernels": kernels}))

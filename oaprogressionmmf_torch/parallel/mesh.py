@@ -10,8 +10,9 @@ step on their concatenation:
   * :meth:`~DataParallel.replicate`: rank 0's parameters and buffers are
     broadcast to the group;
   * :class:`GlobalBatchNorm2d`: train-mode BatchNorm over the global batch
-    (the statistics of JAX's BatchNorm under the mesh), on the CPU (gloo)
-    and the GPU alike;
+    (the statistics of JAX's BatchNorm under the mesh): on the CPU (gloo)
+    :func:`global_batch_norm_plain`, on the GPU four hand-written kernels
+    around the same two collectives (``ops/global_bn.py``);
   * :meth:`~DataParallel.global_loss`: the loss over the global batch,
     weighted means (class-weighted CE) included;
   * :meth:`~DataParallel.all_reduce_grads`: the mean of the ranks'
@@ -25,6 +26,8 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.global_bn import global_batch_norm
+
 # gradients are averaged in flat buckets of at most this many elements
 BUCKET_NUMEL = 1 << 26
 
@@ -35,26 +38,36 @@ def _acc(x: torch.Tensor) -> torch.dtype:
     return torch.float64 if x.dtype == torch.float64 else torch.float32
 
 
-def _merged_moments(x: torch.Tensor, group) -> tuple:
-    """Mean and biased variance per channel of the (N, C, H, W) batch
-    over every rank of ``group``, and the global count, all on the device
-    in the statistics' type: each rank's local count, mean and inverse
-    standard deviation (one pass of BatchNorm's own statistics kernel)
-    are gathered and merged (Chan's formula)."""
-    _, mean, invstd = torch.native_batch_norm(x, None, None, None, None,
-                                              True, 0.0, 0.0)
-    mean, invstd = mean.to(_acc(x)), invstd.to(_acc(x))
-    local = torch.stack([torch.full_like(mean, x.numel() // x.shape[1]),
-                         mean, invstd])
-    parts = [torch.empty_like(local)
-             for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, local, group=group)
-    counts, means, invstds = torch.stack(parts).unbind(1)
+def local_moments(x: torch.Tensor) -> torch.Tensor:
+    """This rank's (count, mean, biased variance) per channel of the
+    (N, C, H, W) batch, a (3, C) tensor in the statistics' type."""
+    var, mean = torch.var_mean(x.to(_acc(x)), dim=(0, 2, 3), correction=0)
+    return torch.stack([torch.full_like(mean, x.numel() // x.shape[1]),
+                        mean, var])
+
+
+def merge_moments(stats: torch.Tensor) -> tuple:
+    """The global mean, biased variance and count per channel from every
+    rank's (count, mean, biased variance), a (world, 3, C) tensor (Chan's
+    formula in its share-weighted form)."""
+    counts, means, variances = stats.unbind(1)
     total = counts.sum(0)
     share = counts / total
     mean = (share * means).sum(0)
-    var = (share * (invstds.pow(-2) + (means - mean).pow(2))).sum(0)
+    var = (share * (variances + (means - mean).pow(2))).sum(0)
     return mean, var, total[0]
+
+
+def _merged_moments(x: torch.Tensor, group) -> tuple:
+    """Mean and biased variance per channel of the (N, C, H, W) batch
+    over every rank of ``group``, and the global count, all on the device
+    in the statistics' type: each rank's local count, mean and biased
+    variance are gathered and merged."""
+    local = local_moments(x)
+    parts = [torch.empty_like(local)
+             for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, local, group=group)
+    return merge_moments(torch.stack(parts))
 
 
 class _GlobalBatchNormFn(torch.autograd.Function):
@@ -96,32 +109,50 @@ class _GlobalBatchNormFn(torch.autograd.Function):
         return dx, d_weight, d_bias, None, None, None, None, None
 
 
+def global_batch_norm_plain(x, weight, bias, running_mean, running_var,
+                            num_batches_tracked, momentum, eps: float, group):
+    """Train-mode BatchNorm2d of ``x`` with the statistics of the batch
+    over every rank of ``group``, in plain PyTorch: the only path for CPU
+    tensors (gloo), and the oracle of ``ops.global_bn.global_batch_norm``
+    (same arguments, same function) on the card. The running statistics
+    take the global mean and the unbiased global variance (count − 1 in
+    the denominator), as torch's BatchNorm does with its own batch, and
+    stay on the device (no host sync but for ``momentum`` None)."""
+    with torch.no_grad():
+        mean, var, count = _merged_moments(x, group)
+        m = (momentum if momentum is not None
+             else 1.0 / float(num_batches_tracked + 1))
+        running_mean.lerp_(mean.to(running_mean.dtype), m)
+        running_var.lerp_(
+            (var * count / (count - 1).clamp_min(1)).to(running_var.dtype),
+            m)
+        num_batches_tracked.add_(1)
+    return _GlobalBatchNormFn.apply(x, weight, bias, mean, var, count, eps,
+                                    group)
+
+
 class GlobalBatchNorm2d(nn.BatchNorm2d):
     """BatchNorm2d whose train-mode statistics are those of the global
-    batch over ``group``; eval mode is BatchNorm2d's. The running variance
-    takes the unbiased global variance (count − 1 in the denominator), as
-    torch's BatchNorm does with its own batch. The statistics stay on the
-    device (no host sync). :meth:`DataParallel.convert_batch_norm` turns a
-    model's BatchNorm2d into this class in place, so the state dict keeps
-    its names. (torch's SyncBatchNorm takes CUDA tensors only; this runs
-    on the CPU over gloo too, with the same code.)"""
+    batch over ``group``; eval mode is BatchNorm2d's. A CPU tensor takes
+    :func:`global_batch_norm_plain` (gloo); a CUDA tensor the kernels of
+    ``ops.global_bn.global_batch_norm`` (NCCL, or gloo on CUDA tensors),
+    which raise on what they do not take. Both give the running variance
+    the unbiased global variance and keep the statistics on the device.
+    :meth:`DataParallel.convert_batch_norm` turns a model's BatchNorm2d
+    into this class in place, so the state dict keeps its names. (torch's
+    SyncBatchNorm takes CUDA tensors only; this runs on the CPU over gloo
+    too.)"""
 
     group = None
 
     def forward(self, x):
         if not self.training:
             return super().forward(x)
-        with torch.no_grad():
-            mean, var, count = _merged_moments(x, self.group)
-            m = (self.momentum if self.momentum is not None
-                 else 1.0 / float(self.num_batches_tracked + 1))
-            self.running_mean.lerp_(mean.to(self.running_mean.dtype), m)
-            self.running_var.lerp_(
-                (var * count / (count - 1).clamp_min(1)).to(
-                    self.running_var.dtype), m)
-            self.num_batches_tracked.add_(1)
-        return _GlobalBatchNormFn.apply(x, self.weight, self.bias, mean,
-                                        var, count, self.eps, self.group)
+        fn = (global_batch_norm_plain if x.device.type == "cpu"
+              else global_batch_norm)
+        return fn(x, self.weight, self.bias, self.running_mean,
+                  self.running_var, self.num_batches_tracked, self.momentum,
+                  self.eps, self.group)
 
 
 def _buckets(params):

@@ -6,7 +6,9 @@ dropout on sub-groups: two-process DP against the one-process step on the
 whole batch (a class-weighted CE case at 4 knees a rank, and a focal case
 at 2 knees a rank, where BatchNorm's statistics must be the global
 batch's), and a 2×2 dp×tp grid against two-process DP after 4 steps
-and in the gradients of one float64 step.
+and in the gradients of one float64 step; and ``GlobalBatchNorm2d``'s
+plain version over two ranks, at one knee a rank and at uneven counts,
+against one-process BatchNorm.
 The one-process step itself is held against JAX by
 ``test_torch_port_train_step.py``; ``tp_param_specs`` is held against
 JAX's here.
@@ -88,6 +90,23 @@ FIT_CONFIG = {
     "num_workers": 1, "loader_backend": "threads", "seed_train_val": 0}
 
 
+# float64 GlobalBatchNorm2d steps of each pair (the worker's
+# run_global_bn): knees per rank, (C, H, W), momentum; ``constant``: a
+# channel and its one value on each rank
+GLOBAL_BN = {
+    # one knee a rank: at 1x1 every channel holds one value on each rank
+    "one_knee_1x1": {"knees": [1, 1], "shape": [6, 1, 1], "momentum": 0.1,
+                     "seed": 1},
+    "one_knee": {"knees": [1, 1], "shape": [6, 3, 4], "momentum": 0.1,
+                 "seed": 2, "constant": [2, [0.5, -1.25]],
+                 "channels_last": True},
+    "uneven": {"knees": [1, 3], "shape": [6, 3, 4], "momentum": None,
+               "seed": 3, "constant": [4, [2.0, 2.0]]},
+}
+# float64 on both sides, sums in another order
+GLOBAL_BN_TOL = dict(rtol=1e-12, atol=1e-12)
+
+
 def _model():
     model = copy.deepcopy(FLAGSHIP_SMALL)
     model["fe"]["clin"]["dropout"] = 0.0
@@ -114,7 +133,8 @@ def ranks(tmp_path_factory):
             "bn": {"batch": 4, "steps": 2, "training": TRAINING},
             "grid": {"batch": 4, "steps": 4, "training": TRAINING},
         },
-        "fit": {"train": FIT_TRAIN, "val": FIT_VAL, "config": FIT_CONFIG}}
+        "fit": {"train": FIT_TRAIN, "val": FIT_VAL, "config": FIT_CONFIG},
+        "global_bn": GLOBAL_BN}
     path = out / "plan.json"
     path.write_text(json.dumps(plan))
     env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
@@ -374,6 +394,59 @@ def test_global_batch_norm_equals_batch_norm(single_rank_group, layout):
         np.testing.assert_allclose(glob.eval()(x).numpy(),
                                    bn.eval()(x).numpy(), rtol=1e-12,
                                    atol=1e-12)
+
+
+@pytest.mark.parametrize("case", sorted(GLOBAL_BN))
+def test_global_batch_norm_over_two_ranks_equals_batch_norm(ranks, case):
+    """A float64 ``GlobalBatchNorm2d`` step over two ranks (gloo) against
+    ``nn.BatchNorm2d`` over both ranks' knees: each rank's output and input
+    gradient are its rows of the one-process ones, the running statistics
+    (unbiased global variance; ``uneven``: momentum None, the cumulative
+    average) and the batch counter equal on every rank, and the ranks'
+    weight and bias gradients add up to the one-process ones. At one knee
+    a rank a channel of one value on a rank (variance 0 there) still
+    merges into the global variance."""
+    for pair in ((0, 1), (2, 3)):
+        got_sum = {}
+        for r in pair:
+            res = ranks[r]["global_bn"][case]
+            got, want = res["got"], res["want"]
+            a, b = res["rows"]
+            for key in ("y", "dx"):
+                np.testing.assert_allclose(got[key].numpy(),
+                                           want[key][a:b].numpy(),
+                                           err_msg=key, **GLOBAL_BN_TOL)
+            for key in ("running_mean", "running_var"):
+                np.testing.assert_allclose(got[key].numpy(),
+                                           want[key].numpy(), err_msg=key,
+                                           **GLOBAL_BN_TOL)
+            assert got["tracked"] == want["tracked"] == 1
+            for key in ("d_weight", "d_bias"):
+                got_sum[key] = got_sum.get(key, 0) + got[key]
+        for key, total in got_sum.items():
+            np.testing.assert_allclose(total.numpy(), want[key].numpy(),
+                                       err_msg=key, **GLOBAL_BN_TOL)
+    assert ranks[0]["global_bn"][case]["rows"] == (0, 1)
+
+
+@pytest.mark.parametrize("counts", [(1, 1), (1, 3), (1, 7, 40), (5, 2, 9, 1)])
+def test_merged_moments_of_uneven_counts(counts):
+    """``merge_moments`` of each part's ``local_moments`` (count, mean,
+    biased variance), parts of uneven counts, against numpy's two-pass
+    mean and variance over their concatenation; a part of one value (one
+    knee of a 1x1 map, variance 0) merges as any other."""
+    rng = np.random.default_rng(len(counts) * 100 + sum(counts))
+    parts = [rng.standard_normal((n, 5, 1, 1)) * 3 + rng.uniform(-2, 2)
+             for n in counts]
+    stats = torch.stack([mesh.local_moments(torch.from_numpy(p))
+                         for p in parts])
+    mean, var, count = mesh.merge_moments(stats)
+    flat = np.concatenate(parts).transpose(1, 0, 2, 3).reshape(5, -1)
+    want_mean = flat.sum(1) / flat.shape[1]
+    want_var = ((flat - want_mean[:, None]) ** 2).sum(1) / flat.shape[1]
+    assert count.item() == sum(counts)
+    np.testing.assert_allclose(mean.numpy(), want_mean, **GLOBAL_BN_TOL)
+    np.testing.assert_allclose(var.numpy(), want_var, **GLOBAL_BN_TOL)
 
 
 def test_single_process_runs_without_a_group(monkeypatch):

@@ -9,7 +9,9 @@ imports the port only (the JAX package stays out of these processes).
 Stages (every rank calls every ``new_group``, members or not):
   1. ranks {0, 1}: two-process DP, class-weighted CE (``ce``); ranks
      {2, 3}: two-process DP, focal loss at 2 knees a rank (``bn``); each
-     also one step in float64 (``*_dp64``);
+     also one step in float64 (``*_dp64``); then, in each pair, one step
+     of a float64 ``GlobalBatchNorm2d`` per ``global_bn`` case of the plan
+     beside ``nn.BatchNorm2d`` on both ranks' knees (``global_bn``);
   2. rank 0: ``ce`` in one process on the whole batch (and its float64
      step); rank 2: ``bn`` likewise; ranks {1, 3}: the grid's data in
      two-process DP (``grid_dp``, 4 steps, and one float64 step,
@@ -25,6 +27,7 @@ Stages (every rank calls every ``new_group``, members or not):
 
 from __future__ import annotations
 
+import copy
 import json
 import sys
 
@@ -99,6 +102,51 @@ def run_case(plan: dict, case: str, dp=None, tp=None,
                                   for p in rt.model.parameters()))}
 
 
+def run_global_bn(plan: dict, dp: DataParallel) -> dict:
+    """Each ``plan["global_bn"]`` case: a float64 ``GlobalBatchNorm2d``
+    over the pair, one train-mode step on this rank's knees (rank r of the
+    pair takes ``knees[r]`` of the case's rows, in order), and, on the
+    same rows, ``nn.BatchNorm2d`` in one process on all of them from the
+    same state. ``constant``: [channel, values], rank r's rows of the
+    channel all hold values[r]."""
+    out = {}
+    for name, spec in plan["global_bn"].items():
+        gen = torch.Generator().manual_seed(spec["seed"])
+        knees = spec["knees"]
+        shape = (sum(knees), *spec["shape"])
+        x = torch.randn(shape, dtype=torch.float64, generator=gen) * 3 + 1
+        grad = torch.randn(shape, dtype=torch.float64, generator=gen)
+        bounds = np.cumsum([0, *knees])
+        if "constant" in spec:
+            ch, values = spec["constant"]
+            for r, v in enumerate(values):
+                x[bounds[r]:bounds[r + 1], ch] = v
+        if spec.get("channels_last"):
+            x = x.to(memory_format=torch.channels_last)
+        bn = torch.nn.BatchNorm2d(shape[1], momentum=spec["momentum"])
+        bn = bn.double()
+        with torch.no_grad():
+            bn.weight.uniform_(0.5, 1.5, generator=gen)
+            bn.bias.normal_(generator=gen)
+        glob = dp.convert_batch_norm(copy.deepcopy(bn))
+        rows = slice(int(bounds[dp.rank]), int(bounds[dp.rank + 1]))
+        res = {"rows": (rows.start, rows.stop)}
+        for key, module, xs, gs in (("got", glob, x[rows], grad[rows]),
+                                    ("want", bn, x, grad)):
+            xi = xs.clone().requires_grad_()
+            y = module(xi)
+            (y * gs).sum().backward()
+            res[key] = {
+                "y": y.detach(), "dx": xi.grad,
+                "d_weight": module.weight.grad,
+                "d_bias": module.bias.grad,
+                "running_mean": module.running_mean.clone(),
+                "running_var": module.running_var.clone(),
+                "tracked": int(module.num_batches_tracked)}
+        out[name] = res
+    return out
+
+
 class Knees:
     """In-memory knees of the plan's model sizes; sample ``idx`` from
     ``default_rng([seed, idx])``, classes alternating."""
@@ -171,6 +219,7 @@ def main(path_plan: str, rank: int) -> None:
     out[f"{case}_dp"] = run_case(plan, case, dp=DataParallel(groups[pair]))
     out[f"{case}_dp64"] = run_case(plan, case, dp=DataParallel(groups[pair]),
                                    float64=True)
+    out["global_bn"] = run_global_bn(plan, DataParallel(groups[pair]))
 
     odd = dist.new_group([1, 3])
     if rank in (0, 2):
