@@ -550,7 +550,7 @@ GBN_DESIGN = ("four kernels around the all-gather and the all-reduce: "
               "and blocks, the last block of a channel tile merging the "
               "partials in order), normalisation with the merge and the "
               "running statistics, the backward's two sums, dx; 16-byte "
-              "loads along C (NHWC) or H·W (NCHW), 4 rows in flight")
+              "loads along C (NHWC), 4 rows in flight")
 
 # phase 7: fold evaluation over phase 6's experiment directory (fold 0:
 # trainer B's epoch-1 checkpoint; fold 1: trainer A's epoch-0 one, a hard
@@ -3521,16 +3521,14 @@ def run_workers(mode: str, plan: dict, tmp: str, n: int) -> tuple:
 
 def gbn_layers(sd: dict, dp) -> list:
     """The input of every train-mode BatchNorm of one bf16 DP step at
-    GBN_RANK_BATCH knees a rank, in call order: (shape, dtype, channels
-    last, the BatchNorm's parameter dtype)."""
+    GBN_RANK_BATCH knees a rank, in call order: (shape, dtype, the
+    BatchNorm's parameter dtype)."""
     rt = par_runtime(sd, MODEL_CFG, torch.bfloat16, dp=dp)
     seen = []
 
     def hook(m, args):
         x = args[0]
-        seen.append((tuple(x.shape), x.dtype,
-                     x.is_contiguous(memory_format=torch.channels_last)
-                     and not x.is_contiguous(), m.weight.dtype))
+        seen.append((tuple(x.shape), x.dtype, m.weight.dtype))
 
     handles = [m.register_forward_pre_hook(hook) for m in global_bns(rt.model)]
     xs, ys = raw_inputs(GBN_RANK_BATCH), labels(GBN_RANK_BATCH)
@@ -3581,13 +3579,13 @@ def phase_global_bn(card: str, sd: dict, dp) -> dict:
     made: dict = {}
 
     def inputs(key):
-        shape, dtype, nhwc, pdtype = key
+        shape, dtype, pdtype = key
         if key not in made:
-            fmt = torch.channels_last if nhwc else torch.contiguous_format
+            cl = torch.channels_last
             x = (torch.randn(shape, device="cuda", generator=gen) * 2 + 0.5
-                 ).to(dtype).contiguous(memory_format=fmt)
+                 ).to(dtype).contiguous(memory_format=cl)
             dy = torch.randn(shape, device="cuda", generator=gen).to(
-                dtype).contiguous(memory_format=fmt)
+                dtype).contiguous(memory_format=cl)
             c = shape[1]
             params = (x.requires_grad_(),
                       (torch.rand(c, device="cuda", generator=gen) + 0.5).to(
@@ -3622,8 +3620,7 @@ def phase_global_bn(card: str, sd: dict, dp) -> dict:
             rec[v] += t * count
         rec["bound_ms"] += bound * count
         rec["per_shape"].append(dict(shape=list(key[0]), dtype=str(key[1]),
-                                     channels_last=key[2], layers=count,
-                                     bound_ms=bound, **times))
+                                     layers=count, bound_ms=bound, **times))
         if max(errs) > GBN_GROSS:
             raise SystemExit(f"global BatchNorm at {key}: y, dx against the "
                              f"plain version {errs}")
@@ -3660,8 +3657,8 @@ def phase_global_bn(card: str, sd: dict, dp) -> dict:
         f"{wrapper_launches} launches (want {4 * rec['layers']}); largest y, dx gap over their peak "
         f"{rec['worst_y']:.2e}, {rec['worst_dx']:.2e}  [{card}]")
     for r in sorted(rec["per_shape"], key=lambda r: -r["ms"] * r["layers"]):
-        log(f"[global-bn]   {r['shape']} {r['dtype']} channels_last "
-            f"{r['channels_last']} x{r['layers']}: kernels {r['ms']:.4f} ms, "
+        log(f"[global-bn]   {r['shape']} {r['dtype']} "
+            f"x{r['layers']}: kernels {r['ms']:.4f} ms, "
             f"plain {r['plain_ms']:.4f}, SyncBatchNorm {r['library_ms']:.4f}"
             f", bound {r['bound_ms']:.4f}")
     if wrapper_launches != 4 * rec["layers"]:

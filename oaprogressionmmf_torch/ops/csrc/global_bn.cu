@@ -30,10 +30,11 @@
 //                                    - xhat * sum(dy * xhat) / n)
 //
 // x, y, dy and dx are float32 or bfloat16, laid out NHWC (PyTorch's
-// channels_last, the port's layout on the card) or contiguous NCHW; the
-// BatchNorm's weight, bias and running statistics float32 (training keeps
-// float32 parameters under bf16 autocast). All arithmetic is float32;
-// values are rounded once to their type.
+// channels_last, the port's layout on the card; ops/global_bn.py makes any
+// other strides channels_last before the first kernel); the BatchNorm's
+// weight, bias and running statistics float32 (training keeps float32
+// parameters under bf16 autocast). All arithmetic is float32; values are
+// rounded once to their type.
 //
 // What bounds it on an H100: bytes. Each kernel does a few float32
 // operations per element against 2 or 4 bytes read; a layer reads x
@@ -42,17 +43,15 @@
 // ~14). So every kernel streams its tensors once with 16-byte loads and
 // aims at the memory rate.
 //
-// Layout of the work. NHWC: a thread owns V consecutive channels (V = 8
-// in bf16, 4 in float32: one 16-byte load; V = 1 where C is not a
-// multiple of that or an address is not 16-byte aligned) of a block's
-// rows, the threads of a block over (row lane, channel group) with
-// channels fastest, so a warp reads contiguous bytes; the grid over (row
-// blocks, channel tiles of at most 32 groups, 8 in the reductions, whose
-// tiles' partials are merged by one block each). A thread keeps its
-// channels' constants in registers and walks its rows four at a time,
-// their loads in flight together. NCHW: a block's channel is blockIdx.y;
-// its threads take V consecutive values of one (image, channel) plane
-// each, the grid's x over the channel's values.
+// Layout of the work: a thread owns V consecutive channels (V = 8 in
+// bf16, 4 in float32: one 16-byte load; V = 1 where C is not a multiple
+// of that or an address is not 16-byte aligned) of a block's rows, the
+// threads of a block over (row lane, channel group) with channels
+// fastest, so a warp reads contiguous bytes; the grid over (row blocks,
+// channel tiles of at most 32 groups, 8 in the reductions, whose tiles'
+// partials are merged by one block each). A thread keeps its channels'
+// constants in registers and walks its rows four at a time, their loads
+// in flight together.
 //
 // The reductions (statistics, backward sums) are deterministic: each
 // thread accumulates its own values in order (Welford for the
@@ -76,8 +75,8 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxGroups = 32;    // channel groups of a block (NHWC)
-constexpr int kUnroll = 4;        // rows (NHWC) or vectors (NCHW) in flight
+constexpr int kMaxGroups = 32;    // channel groups of a block
+constexpr int kUnroll = 4;        // rows in flight
 constexpr int kBatch = 8;         // partials in flight in a final merge
 constexpr int kMaxVec = 8;
 constexpr int kMaxTiles = 65535;  // grid.y, and the counters' length
@@ -533,197 +532,13 @@ gbn_bn_bw_dx_nhwc(const T* __restrict__ dy, const T* __restrict__ x,
   }
 }
 
-// ------------------------------------------------------------------ NCHW
-//
-// Grid (blocks of a channel, C); block (bx, k) takes vectors j0 .. j1 - 1
-// of channel k's n * hv vectors of V values (hv = HW / V per plane),
-// thread i vectors j0 + i, j0 + i + kThreads, ...
-
-struct Nchw {
-  int k;
-  int64_t j0, j1, hv, hw, c;
-
-  __device__ __forceinline__ Nchw(int64_t n, int c_, int64_t hw_, int vec,
-                                  int64_t per_block) {
-    k = blockIdx.y;
-    c = c_;
-    hw = hw_;
-    hv = hw_ / vec;
-    j0 = blockIdx.x * per_block;
-    const int64_t all = n * hv;
-    j1 = j0 + per_block < all ? j0 + per_block : all;
-  }
-
-  // the offset of vector j's first value
-  __device__ __forceinline__ int64_t at(int64_t j, int vec) const {
-    const int64_t img = j / hv;
-    return (img * c + k) * hw + (j - img * hv) * vec;
-  }
-};
-
-template <typename T, int V>
-__global__ void __launch_bounds__(kThreads)
-gbn_bn_fw_stats_nchw(const T* __restrict__ x, int64_t n, int c, int64_t hw,
-                     int64_t per_block, Moments* __restrict__ partial,
-                     unsigned int* __restrict__ counters,
-                     float* __restrict__ local) {
-  __shared__ Moments sh[kThreads];
-  const Nchw t(n, c, hw, V, per_block);
-  Moments acc[1] = {{0.f, 0.f, 0.f}};
-  for (int64_t j = t.j0 + threadIdx.x; j < t.j1; j += kUnroll * kThreads) {
-    float xs[kUnroll][V];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u)
-      if (j + u * kThreads < t.j1)
-        load<V>(x + t.at(j + u * kThreads, V), xs[u]);
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      if (j + u * kThreads < t.j1) {  // the vector's moments, then Chan
-        float s = 0.f;
-#pragma unroll
-        for (int v = 0; v < V; ++v) s += xs[u][v];
-        const float mean = s / float(V);
-        float m2 = 0.f;
-#pragma unroll
-        for (int v = 0; v < V; ++v)
-          m2 += (xs[u][v] - mean) * (xs[u][v] - mean);
-        acc[0] = merge(acc[0], Moments{float(V), mean, m2});
-      }
-    }
-  }
-  block_merge<Moments, 1>(acc, sh, threadIdx.x, kThreads, 0, 1);
-  if (threadIdx.x == 0) partial[int64_t(blockIdx.x) * c + t.k] = acc[0];
-  if (!last_block(counters)) return;
-  const Moments m = final_merge(partial, gridDim.x, c, t.k, 1, sh);
-  if (threadIdx.x == 0) {
-    local[t.k] = float(n * hw);
-    local[c + t.k] = m.mean;
-    local[2 * c + t.k] = m.n > 0.f ? m.m2 / m.n : 0.f;
-  }
-}
-
-template <typename T, int V>
-__global__ void __launch_bounds__(kThreads)
-gbn_bn_fw_apply_nchw(const T* __restrict__ x, T* __restrict__ y, int64_t n,
-                     int c, int64_t hw, int64_t per_block,
-                     const float* __restrict__ gathered, int world,
-                     const float* __restrict__ weight,
-                     const float* __restrict__ bias, float eps,
-                     float momentum, float* __restrict__ running_mean,
-                     float* __restrict__ running_var,
-                     long long* __restrict__ tracked,
-                     float* __restrict__ saved) {
-  const Nchw t(n, c, hw, V, per_block);
-  float mean, var, count;
-  merged(gathered, world, c, t.k, mean, var, count);
-  const float a = rsqrtf(var + eps) * weight[t.k];
-  const float b = bias[t.k] - mean * a;
-  for (int64_t j = t.j0 + threadIdx.x; j < t.j1; j += kUnroll * kThreads) {
-    float xs[kUnroll][V];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u)
-      if (j + u * kThreads < t.j1)
-        load<V>(x + t.at(j + u * kThreads, V), xs[u]);
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      if (j + u * kThreads < t.j1) {
-#pragma unroll
-        for (int v = 0; v < V; ++v) xs[u][v] = xs[u][v] * a + b;
-        store<V>(y + t.at(j + u * kThreads, V), xs[u]);
-      }
-    }
-  }
-  if (blockIdx.x == 0 && blockIdx.y == 0)
-    finish_forward(gathered, world, c, eps, momentum, running_mean,
-                   running_var, tracked, saved);
-}
-
-template <typename T, int V>
-__global__ void __launch_bounds__(kThreads)
-gbn_bn_bw_reduce_nchw(const T* __restrict__ dy, const T* __restrict__ x,
-                      int64_t n, int c, int64_t hw, int64_t per_block,
-                      const float* __restrict__ saved,
-                      Sums* __restrict__ partial,
-                      unsigned int* __restrict__ counters,
-                      float* __restrict__ sums,
-                      float* __restrict__ d_weight,
-                      float* __restrict__ d_bias) {
-  __shared__ Sums sh[kThreads];
-  const Nchw t(n, c, hw, V, per_block);
-  const float mean = saved[t.k];
-  Sums acc[1] = {{0.f, 0.f}};
-  for (int64_t j = t.j0 + threadIdx.x; j < t.j1; j += kUnroll * kThreads) {
-    float gs[kUnroll][V], xs[kUnroll][V];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      if (j + u * kThreads < t.j1) {
-        const int64_t at = t.at(j + u * kThreads, V);
-        load<V>(dy + at, gs[u]);
-        load<V>(x + at, xs[u]);
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      if (j + u * kThreads < t.j1) {
-#pragma unroll
-        for (int v = 0; v < V; ++v) {
-          acc[0].dy += gs[u][v];
-          acc[0].dyx += gs[u][v] * (xs[u][v] - mean);
-        }
-      }
-    }
-  }
-  block_merge<Sums, 1>(acc, sh, threadIdx.x, kThreads, 0, 1);
-  if (threadIdx.x == 0) partial[int64_t(blockIdx.x) * c + t.k] = acc[0];
-  if (!last_block(counters)) return;
-  const Sums s = final_merge(partial, gridDim.x, c, t.k, 1, sh);
-  if (threadIdx.x == 0) {
-    const float dyx = s.dyx * saved[c + t.k];
-    sums[t.k] = d_bias[t.k] = s.dy;
-    sums[c + t.k] = d_weight[t.k] = dyx;
-  }
-}
-
-template <typename T, int V>
-__global__ void __launch_bounds__(kThreads)
-gbn_bn_bw_dx_nchw(const T* __restrict__ dy, const T* __restrict__ x,
-                  T* __restrict__ dx, int64_t n, int c, int64_t hw,
-                  int64_t per_block, const float* __restrict__ saved,
-                  const float* __restrict__ sums,
-                  const float* __restrict__ weight) {
-  const Nchw t(n, c, hw, V, per_block);
-  float mean, scale, s1, s2;
-  dx_constants(saved, sums, weight, c, t.k, mean, scale, s1, s2);
-  for (int64_t j = t.j0 + threadIdx.x; j < t.j1; j += kUnroll * kThreads) {
-    float gs[kUnroll][V], xs[kUnroll][V];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      if (j + u * kThreads < t.j1) {
-        const int64_t at = t.at(j + u * kThreads, V);
-        load<V>(dy + at, gs[u]);
-        load<V>(x + at, xs[u]);
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      if (j + u * kThreads < t.j1) {
-#pragma unroll
-        for (int v = 0; v < V; ++v)
-          xs[u][v] = scale * (gs[u][v] - s1 - (xs[u][v] - mean) * s2);
-        store<V>(dx + t.at(j + u * kThreads, V), xs[u]);
-      }
-    }
-  }
-}
-
 // ------------------------------------------------------------- launching
 
 // The shape of one call and the grid that covers it.
 struct Plan {
-  bool nhwc;
-  int vec;           // values a thread loads at once
-  int cg;            // NHWC: channel groups of a block
-  int64_t per_block; // NHWC: rows; NCHW: vectors of a channel
+  int vec;            // values a thread loads at once
+  int cg;             // channel groups of a block
+  int64_t per_block;  // rows of a block
   dim3 grid;
 };
 
@@ -732,10 +547,10 @@ bool aligned(const void* p) {
 }
 
 // How a kernel's grid is cut: the blocks an SM it aims at, a block's
-// channel groups at most (NHWC), and the rows (NHWC) or vectors (NCHW) a
-// thread takes at least. The reductions take narrow tiles and few row
-// blocks, so that the last block of a tile merges few partials (their
-// count is the row blocks of the tile); the streaming kernels wide tiles.
+// channel groups at most, and the rows a thread takes at least. The
+// reductions take narrow tiles and few row blocks, so that the last block
+// of a tile merges few partials (their count is the row blocks of the
+// tile); the streaming kernels wide tiles.
 struct Kind {
   int blocks_per_sm, max_groups, min_per_thread;
 };
@@ -743,7 +558,7 @@ constexpr Kind kReduce = {2, 8, 4 * kUnroll};
 constexpr Kind kStream = {4, kMaxGroups, kUnroll};
 
 // `ptrs`: the call's activations, whose alignment allows 16-byte vectors.
-cudaError_t plan(int64_t n, int c, int64_t hw, int nhwc, int elt, Kind kind,
+cudaError_t plan(int64_t n, int c, int64_t hw, int elt, Kind kind,
                  const void* const* ptrs, int n_ptrs, Plan& p) {
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -754,37 +569,21 @@ cudaError_t plan(int64_t n, int c, int64_t hw, int nhwc, int elt, Kind kind,
   for (int i = 0; i < n_ptrs; ++i) al = al && aligned(ptrs[i]);
   const int full = 16 / elt;
   const int64_t target = int64_t(kind.blocks_per_sm) * sms;
-  p.nhwc = nhwc != 0;
-  if (p.nhwc) {
-    p.vec = al && c % full == 0 ? full : 1;
-    const int groups = c / p.vec;
-    p.cg = groups < kind.max_groups ? groups : kind.max_groups;
-    const int tiles = (groups + p.cg - 1) / p.cg;
-    const int lanes = kThreads / p.cg;
-    const int64_t rows = n * hw;
-    const int64_t least = int64_t(lanes) * kind.min_per_thread;
-    const int64_t most = (rows + least - 1) / least;
-    int64_t blocks = (target + tiles - 1) / tiles;
-    if (blocks > most) blocks = most;
-    if (blocks < 1) blocks = 1;
-    p.per_block = (rows + blocks - 1) / blocks;
-    blocks = (rows + p.per_block - 1) / p.per_block;
-    if (tiles > kMaxTiles) return cudaErrorInvalidValue;
-    p.grid = dim3(unsigned(blocks), unsigned(tiles));
-  } else {
-    p.vec = al && hw % full == 0 ? full : 1;
-    p.cg = 0;
-    const int64_t vectors = n * (hw / p.vec);
-    const int64_t least = int64_t(kThreads) * kind.min_per_thread;
-    const int64_t most = (vectors + least - 1) / least;
-    int64_t blocks = (target + c - 1) / c;
-    if (blocks > most) blocks = most;
-    if (blocks < 1) blocks = 1;
-    p.per_block = (vectors + blocks - 1) / blocks;
-    blocks = (vectors + p.per_block - 1) / p.per_block;
-    if (c > kMaxTiles) return cudaErrorInvalidValue;
-    p.grid = dim3(unsigned(blocks), unsigned(c));
-  }
+  p.vec = al && c % full == 0 ? full : 1;
+  const int groups = c / p.vec;
+  p.cg = groups < kind.max_groups ? groups : kind.max_groups;
+  const int tiles = (groups + p.cg - 1) / p.cg;
+  const int lanes = kThreads / p.cg;
+  const int64_t rows = n * hw;
+  const int64_t least = int64_t(lanes) * kind.min_per_thread;
+  const int64_t most = (rows + least - 1) / least;
+  int64_t blocks = (target + tiles - 1) / tiles;
+  if (blocks > most) blocks = most;
+  if (blocks < 1) blocks = 1;
+  p.per_block = (rows + blocks - 1) / blocks;
+  blocks = (rows + p.per_block - 1) / p.per_block;
+  if (tiles > kMaxTiles) return cudaErrorInvalidValue;
+  p.grid = dim3(unsigned(blocks), unsigned(tiles));
   return cudaSuccess;
 }
 
@@ -807,14 +606,14 @@ bool valid(int64_t n, int c, int64_t hw) {
 
 }  // namespace
 
-// Shapes: x is (n, c, h, w) with hw = h * w, NHWC in memory (nhwc = 1) or
-// NCHW (nhwc = 0); x, y, dy, dx float32 (x_bf16 = 0) or bfloat16
-// (x_bf16 = 1); weight, bias, running_mean, running_var, d_weight, d_bias
-// (c,) float32; tracked one int64. Float32 buffers: local (3, c),
-// gathered (world, 3, c), saved (2c + 1), sums (2, c); partial: at least
-// gbn_max_blocks() * 3 * c floats; counters: 65535 zeroed unsigned ints,
-// left zeroed. Each function launches one kernel on `stream` and returns
-// cudaGetLastError() of the launch (0 on success).
+// Shapes: x is (n, c, h, w) with hw = h * w, NHWC in memory (the n * hw
+// rows of c channels, channels fastest); x, y, dy, dx float32 (x_bf16 =
+// 0) or bfloat16 (x_bf16 = 1); weight, bias, running_mean, running_var,
+// d_weight, d_bias (c,) float32; tracked one int64. Float32 buffers: local
+// (3, c), gathered (world, 3, c), saved (2c + 1), sums (2, c); partial: at
+// least gbn_max_blocks() * 3 * c floats; counters: 65535 zeroed unsigned
+// ints, left zeroed. Each function launches one kernel on `stream` and
+// returns cudaGetLastError() of the launch (0 on success).
 
 // The most row blocks a reduction's grid takes on this device (its
 // partials' capacity is that times 3 * c floats).
@@ -828,13 +627,12 @@ extern "C" int gbn_max_blocks() {
 }
 
 extern "C" int gbn_fw_stats(const void* x, long long n, int c, long long hw,
-                            int nhwc, int x_bf16, float* local, void* partial,
+                            int x_bf16, float* local, void* partial,
                             void* counters, void* stream) {
   if (!valid(n, c, hw)) return int(cudaErrorInvalidValue);
   const void* ptrs[1] = {x};
   Plan p;
-  cudaError_t err = plan(n, c, hw, nhwc, x_bf16 ? 2 : 4, kReduce, ptrs, 1,
-                         p);
+  cudaError_t err = plan(n, c, hw, x_bf16 ? 2 : 4, kReduce, ptrs, 1, p);
   if (err != cudaSuccess) return int(err);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto* part = static_cast<Moments*>(partial);
@@ -842,58 +640,45 @@ extern "C" int gbn_fw_stats(const void* x, long long n, int c, long long hw,
   return int(by_type(x_bf16, p, [&](auto t, auto v) {
     using T = decltype(t);
     constexpr int V = decltype(v)::value;
-    const T* xs = static_cast<const T*>(x);
-    if (p.nhwc)
-      gbn_bn_fw_stats_nhwc<T, V><<<p.grid, kThreads, 0, s>>>(
-          xs, n * hw, c, p.cg, p.per_block, part, count, local);
-    else
-      gbn_bn_fw_stats_nchw<T, V><<<p.grid, kThreads, 0, s>>>(
-          xs, n, c, hw, p.per_block, part, count, local);
+    gbn_bn_fw_stats_nhwc<T, V><<<p.grid, kThreads, 0, s>>>(
+        static_cast<const T*>(x), n * hw, c, p.cg, p.per_block, part, count,
+        local);
     return cudaGetLastError();
   }));
 }
 
 extern "C" int gbn_fw_apply(const void* x, void* y, long long n, int c,
-                            long long hw, int nhwc, int x_bf16,
-                            const float* gathered, int world,
-                            const float* weight, const float* bias,
-                            float eps, float momentum, float* running_mean,
-                            float* running_var, long long* tracked,
-                            float* saved, void* stream) {
+                            long long hw, int x_bf16, const float* gathered,
+                            int world, const float* weight,
+                            const float* bias, float eps, float momentum,
+                            float* running_mean, float* running_var,
+                            long long* tracked, float* saved, void* stream) {
   if (!valid(n, c, hw) || world < 1) return int(cudaErrorInvalidValue);
   const void* ptrs[2] = {x, y};
   Plan p;
-  cudaError_t err = plan(n, c, hw, nhwc, x_bf16 ? 2 : 4, kStream, ptrs, 2,
-                         p);
+  cudaError_t err = plan(n, c, hw, x_bf16 ? 2 : 4, kStream, ptrs, 2, p);
   if (err != cudaSuccess) return int(err);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return int(by_type(x_bf16, p, [&](auto t, auto v) {
     using T = decltype(t);
     constexpr int V = decltype(v)::value;
-    const T* xs = static_cast<const T*>(x);
-    T* ys = static_cast<T*>(y);
-    if (p.nhwc)
-      gbn_bn_fw_apply_nhwc<T, V><<<p.grid, kThreads, 0, s>>>(
-          xs, ys, n * hw, c, p.cg, p.per_block, gathered, world, weight,
-          bias, eps, momentum, running_mean, running_var, tracked, saved);
-    else
-      gbn_bn_fw_apply_nchw<T, V><<<p.grid, kThreads, 0, s>>>(
-          xs, ys, n, c, hw, p.per_block, gathered, world, weight, bias, eps,
-          momentum, running_mean, running_var, tracked, saved);
+    gbn_bn_fw_apply_nhwc<T, V><<<p.grid, kThreads, 0, s>>>(
+        static_cast<const T*>(x), static_cast<T*>(y), n * hw, c, p.cg,
+        p.per_block, gathered, world, weight, bias, eps, momentum,
+        running_mean, running_var, tracked, saved);
     return cudaGetLastError();
   }));
 }
 
 extern "C" int gbn_bw_reduce(const void* dy, const void* x, long long n,
-                             int c, long long hw, int nhwc, int x_bf16,
+                             int c, long long hw, int x_bf16,
                              const float* saved, void* partial,
                              void* counters, float* sums, float* d_weight,
                              float* d_bias, void* stream) {
   if (!valid(n, c, hw)) return int(cudaErrorInvalidValue);
   const void* ptrs[2] = {dy, x};
   Plan p;
-  cudaError_t err = plan(n, c, hw, nhwc, x_bf16 ? 2 : 4, kReduce, ptrs, 2,
-                         p);
+  cudaError_t err = plan(n, c, hw, x_bf16 ? 2 : 4, kReduce, ptrs, 2, p);
   if (err != cudaSuccess) return int(err);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto* part = static_cast<Sums*>(partial);
@@ -901,43 +686,30 @@ extern "C" int gbn_bw_reduce(const void* dy, const void* x, long long n,
   return int(by_type(x_bf16, p, [&](auto t, auto v) {
     using T = decltype(t);
     constexpr int V = decltype(v)::value;
-    const T* gs = static_cast<const T*>(dy);
-    const T* xs = static_cast<const T*>(x);
-    if (p.nhwc)
-      gbn_bn_bw_reduce_nhwc<T, V><<<p.grid, kThreads, 0, s>>>(
-          gs, xs, n * hw, c, p.cg, p.per_block, saved, part, count, sums,
-          d_weight, d_bias);
-    else
-      gbn_bn_bw_reduce_nchw<T, V><<<p.grid, kThreads, 0, s>>>(
-          gs, xs, n, c, hw, p.per_block, saved, part, count, sums, d_weight,
-          d_bias);
+    gbn_bn_bw_reduce_nhwc<T, V><<<p.grid, kThreads, 0, s>>>(
+        static_cast<const T*>(dy), static_cast<const T*>(x), n * hw, c, p.cg,
+        p.per_block, saved, part, count, sums, d_weight, d_bias);
     return cudaGetLastError();
   }));
 }
 
 extern "C" int gbn_bw_dx(const void* dy, const void* x, void* out,
-                         long long n, int c, long long hw, int nhwc,
-                         int x_bf16, const float* saved, const float* sums,
+                         long long n, int c, long long hw, int x_bf16,
+                         const float* saved, const float* sums,
                          const float* weight, void* stream) {
   if (!valid(n, c, hw)) return int(cudaErrorInvalidValue);
   const void* ptrs[3] = {dy, x, out};
   Plan p;
-  cudaError_t err = plan(n, c, hw, nhwc, x_bf16 ? 2 : 4, kStream, ptrs, 3,
-                         p);
+  cudaError_t err = plan(n, c, hw, x_bf16 ? 2 : 4, kStream, ptrs, 3, p);
   if (err != cudaSuccess) return int(err);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return int(by_type(x_bf16, p, [&](auto t, auto v) {
     using T = decltype(t);
     constexpr int V = decltype(v)::value;
-    const T* gs = static_cast<const T*>(dy);
-    const T* xs = static_cast<const T*>(x);
-    T* dxs = static_cast<T*>(out);
-    if (p.nhwc)
-      gbn_bn_bw_dx_nhwc<T, V><<<p.grid, kThreads, 0, s>>>(
-          gs, xs, dxs, n * hw, c, p.cg, p.per_block, saved, sums, weight);
-    else
-      gbn_bn_bw_dx_nchw<T, V><<<p.grid, kThreads, 0, s>>>(
-          gs, xs, dxs, n, c, hw, p.per_block, saved, sums, weight);
+    gbn_bn_bw_dx_nhwc<T, V><<<p.grid, kThreads, 0, s>>>(
+        static_cast<const T*>(dy), static_cast<const T*>(x),
+        static_cast<T*>(out), n * hw, c, p.cg, p.per_block, saved, sums,
+        weight);
     return cudaGetLastError();
   }));
 }

@@ -15,9 +15,10 @@ path for CPU tensors) already has:
     weight and bias gradients), ``all_reduce`` of them, ``gbn_bn_bw_dx``.
 
 It computes the plain version's function in the same precision (float32
-statistics and sums). There is no TPU kernel behind it: the JAX package
-leaves BatchNorm under the mesh to XLA. Nothing is built or loaded when
-the module is imported.
+statistics and sums), in one layout: NHWC (channels_last, the layout the
+card's training runs in); other strides are copied to it first. There is
+no TPU kernel behind it: the JAX package leaves BatchNorm under the mesh
+to XLA. Nothing is built or loaded when the module is imported.
 """
 
 from __future__ import annotations
@@ -42,7 +43,7 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("global_bn")
     ptr, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                           ctypes.c_float)
-    shape = [i64, i32, i64, i32, i32]          # n, c, hw, nhwc, x_bf16
+    shape = [i64, i32, i64, i32]               # n, c, hw, x_bf16
     lib.gbn_max_blocks.argtypes = []
     lib.gbn_fw_stats.argtypes = [ptr, *shape, ptr, ptr, ptr, ptr]
     lib.gbn_fw_apply.argtypes = [ptr, ptr, *shape, ptr, i32, ptr, ptr, f32,
@@ -88,19 +89,6 @@ def _check(err: int, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: CUDA error {err}")
 
 
-def _layout(x: torch.Tensor) -> int:
-    """1 for NHWC (channels_last), 0 for contiguous NCHW; else raises.
-    A tensor both describe (H·W or C of 1) takes NHWC, the layout the
-    card's training runs in."""
-    if x.is_contiguous(memory_format=torch.channels_last):
-        return 1
-    if x.is_contiguous():
-        return 0
-    raise ValueError(f"global_batch_norm's kernels take a contiguous NCHW "
-                     f"or channels_last tensor; got strides {x.stride()} "
-                     f"for shape {tuple(x.shape)}")
-
-
 def _check_inputs(x, params, buffers) -> None:
     if x.dim() != 4:
         raise ValueError(f"global_batch_norm takes a 4-D (N, C, H, W) "
@@ -140,9 +128,8 @@ class _GlobalBatchNormFn(torch.autograd.Function):
     def forward(ctx, x, weight, bias, buffers, momentum, eps, group):
         lib = _lib()
         stream, counters, blocks = _device_state(x)
-        nhwc = _layout(x)
         n, c, h, w = x.shape
-        shape = (n, c, h * w, nhwc, int(x.dtype == torch.bfloat16))
+        shape = (n, c, h * w, int(x.dtype == torch.bfloat16))
         f32 = dict(dtype=torch.float32, device=x.device)
         local = torch.empty((3, c), **f32)
         partial = torch.empty(blocks * 3 * c, **f32)
@@ -166,7 +153,7 @@ class _GlobalBatchNormFn(torch.autograd.Function):
             "gbn_bn_fw_apply")
         global_batch_norm.launches += 1
         ctx.save_for_backward(x, weight, saved)
-        ctx.group, ctx.nhwc = group, nhwc
+        ctx.group = group
         return y
 
     @staticmethod
@@ -174,11 +161,9 @@ class _GlobalBatchNormFn(torch.autograd.Function):
         x, weight, saved = ctx.saved_tensors
         lib = _lib()
         stream, counters, blocks = _device_state(x)
-        dy = dy.to(x.dtype).contiguous(
-            memory_format=torch.channels_last if ctx.nhwc
-            else torch.contiguous_format)
+        dy = dy.to(x.dtype).contiguous(memory_format=torch.channels_last)
         n, c, h, w = x.shape
-        shape = (n, c, h * w, ctx.nhwc, int(x.dtype == torch.bfloat16))
+        shape = (n, c, h * w, int(x.dtype == torch.bfloat16))
         f32 = dict(dtype=torch.float32, device=x.device)
         sums = torch.empty((2, c), **f32)
         partial = torch.empty(blocks * 2 * c, **f32)
@@ -210,20 +195,26 @@ def global_batch_norm(x, weight, bias, running_mean, running_var,
     ``num_batches_tracked`` its int64 counter; ``momentum`` a float or
     None (the cumulative average). The running statistics take the global
     mean and the unbiased global variance (count − 1 in the denominator),
-    and the counter 1, on the card (no host sync). Returns y in x's dtype
-    and memory format; its backward gives the global batch's dx and this
-    rank's weight and bias gradients (the gradient all-reduce adds them).
+    and the counter 1, on the card (no host sync). Returns y in x's dtype,
+    channels_last; its backward gives the global batch's dx (channels_last)
+    and this rank's weight and bias gradients (the gradient all-reduce adds
+    them).
 
-    ``x`` must be a CUDA tensor, float32 or bfloat16, channels_last or
-    contiguous NCHW: it launches the kernels on PyTorch's current stream
-    and counts ``global_batch_norm.launches`` (4 a layer a step: two in
-    the forward, two in the backward), or raises (float64 raises). CPU
-    tensors take ``parallel.mesh.global_batch_norm_plain``."""
+    ``x`` must be a CUDA tensor, float32 or bfloat16: it launches the
+    kernels on PyTorch's current stream and counts
+    ``global_batch_norm.launches`` (4 a layer a step: two in the forward,
+    two in the backward), or raises (float64 raises). The kernels take one
+    layout, NHWC, and there is no layout argument: a channels_last ``x``,
+    as training passes, goes in as it is; any other strides (contiguous
+    (N, C, H, W) order, a strided slice) are first copied to
+    channels_last. CPU tensors take
+    ``parallel.mesh.global_batch_norm_plain``."""
     if x.device.type != "cuda":
         raise ValueError(f"global_batch_norm's kernels run on CUDA tensors, "
                          f"got {x.device}")
     buffers = (running_mean, running_var, num_batches_tracked)
     _check_inputs(x, (weight, bias), buffers)
+    x = x.contiguous(memory_format=torch.channels_last)
     with torch.cuda.device(x.device):
         return _GlobalBatchNormFn.apply(x, weight, bias, buffers, momentum,
                                         eps, group)

@@ -136,8 +136,11 @@ class GlobalBatchNorm2d(nn.BatchNorm2d):
     batch over ``group``; eval mode is BatchNorm2d's. A CPU tensor takes
     :func:`global_batch_norm_plain` (gloo); a CUDA tensor the kernels of
     ``ops.global_bn.global_batch_norm`` (NCCL, or gloo on CUDA tensors),
-    which raise on what they do not take. Both give the running variance
-    the unbiased global variance and keep the statistics on the device.
+    which raise on what they do not take. The kernels have one layout,
+    channels_last (training's on the card), and no layout argument: other
+    strides are copied to it, and y comes back channels_last. Both give
+    the running variance the unbiased global variance and keep the
+    statistics on the device.
     :meth:`DataParallel.convert_batch_norm` turns a model's BatchNorm2d
     into this class in place, so the state dict keeps its names. (torch's
     SyncBatchNorm takes CUDA tensors only; this runs on the CPU over gloo

@@ -126,11 +126,19 @@ class Predictor:
         """Python must see this call: a dispatch mode or a forward hook."""
         return _get_current_dispatch_mode() is not None or any(self._hooks)
 
-    def to_device(self, xs) -> tuple:
+    def to_device(self, xs, into=None) -> tuple:
+        """``xs`` (numpy arrays or tensors) copied to the device: into new
+        tensors, or into ``into`` (a graph's static inputs), which it
+        returns. A call's only host-to-device copy, the span
+        ``serve.upload``."""
         with tracing.span("serve.upload"):
-            return tuple(torch.as_tensor(x).to(self.device,
-                                               non_blocking=True)
-                         for x in xs)
+            ts = tuple(torch.as_tensor(x) for x in xs)
+            if into is None:
+                into = tuple(torch.empty(t.shape, dtype=t.dtype,
+                                         device=self.device) for t in ts)
+            for x, t in zip(into, ts):
+                x.copy_(t, non_blocking=True)
+            return into
 
     def __call__(self, xs) -> torch.Tensor:
         return self._run(xs)[1]
@@ -160,10 +168,7 @@ class Predictor:
     def _capture(self, sig, ts) -> tuple:
         """Run :func:`eval_step` eagerly on a side stream (the answer), then
         capture it there on static inputs holding ``ts``."""
-        with tracing.span("serve.upload"):
-            xs = tuple(torch.empty(t.shape, dtype=t.dtype,
-                                   device=self.device).copy_(
-                t, non_blocking=True) for t in ts)
+        xs = self.to_device(ts)
         with torch.cuda.device(self.device):
             if self._stream is None:
                 self._stream = torch.cuda.Stream()
@@ -179,9 +184,7 @@ class Predictor:
         return answer
 
     def _replay(self, g: _Graph, ts) -> tuple:
-        with tracing.span("serve.upload"):
-            for x, t in zip(g.xs, ts):
-                x.copy_(t, non_blocking=True)
+        self.to_device(ts, into=g.xs)
         with tracing.span("serve.forward"):
             g.graph.replay()
             self.counts["replayed"] += 1

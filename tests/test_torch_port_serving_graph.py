@@ -14,7 +14,7 @@ import pytest
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
-from oaprogressionmmf_torch import serving
+from oaprogressionmmf_torch import serving, tracing
 from oaprogressionmmf_torch.models import dict_models
 from oaprogressionmmf_torch.ops.flash_attention import flash_attention
 from oaprogressionmmf_torch.train.trainer import eval_step
@@ -97,6 +97,34 @@ def test_the_predictor_sees_calibration_hooks_and_dispatch_modes():
     with FlopCounterMode(display=False):
         assert predictor._intercepted()
     assert not predictor._intercepted()
+
+
+def test_to_device_is_the_one_upload():
+    """``to_device`` copies host arrays and tensors to the device within
+    one ``serve.upload`` span a call: into new tensors, or into the given
+    ones (a graph's static inputs), which it fills and returns."""
+    predictor = _predictor("cpu")
+    xs = (_knees(1, batch=2)[0][0],
+          torch.arange(6, dtype=torch.float32).reshape(2, 3))
+    bufs = (torch.zeros(xs[0].shape, dtype=torch.uint8),
+            torch.zeros(2, 3))
+    tracing.clear()
+    try:
+        with tracing.recording():
+            fresh = predictor.to_device(xs)
+            filled = predictor.to_device(xs, into=bufs)
+        names = [s.name for s in tracing.spans()]
+    finally:
+        tracing.clear()
+    assert names == ["serve.upload"] * 2
+    for got, x in zip(fresh, xs):
+        want = torch.as_tensor(x)
+        assert torch.equal(got, want) and got.dtype == want.dtype
+        assert got.data_ptr() != want.data_ptr()
+    assert len(filled) == len(bufs)
+    assert all(f is b for f, b in zip(filled, bufs))
+    for b, x in zip(bufs, xs):
+        assert torch.equal(b, torch.as_tensor(x))
 
 
 def _k1_on_the_device(fn) -> int:
